@@ -8,7 +8,7 @@ couple of minutes:
 
     JAX_PLATFORMS=cpu python examples/demo_3d_biofilm.py
 
-On a TPU drop JAX_PLATFORMS; the same code path runs the full
+On a GPU drop JAX_PLATFORMS; the same code path runs the full
 2020x2020x170 reference scale via tools/bench3d.py.
 """
 

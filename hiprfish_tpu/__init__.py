@@ -1,15 +1,15 @@
-"""hiprfish_tpu — TPU-native HiPR-FISH spectral image analysis framework.
+"""hiprfish_tpu — HiPR-FISH spectral image analysis on an accelerator (JAX).
 
 A from-scratch JAX/XLA/Pallas re-design of the HiPR-FISH image-analysis
 pipeline (reference: proudquartz/hiprfish-image-analysis): registration,
 edge-enhanced single-cell segmentation, per-cell spectral measurement,
 1023-barcode spectral classification, classifier training via spectral
-simulation, and experiment aggregation — all running on TPU with the
+simulation, and experiment aggregation — all running on the device (an NVIDIA GPU) with the
 host-side runtime (I/O, workflow driver, CLI) kept byte-compatible with
 the reference's file formats.
 
 Layer map (mirrors SURVEY.md §1):
-  L0 ops/          fused Pallas/XLA kernels (line-profile LP-CV stencil,
+  L0 ops/          fused XLA programs and a Pallas kernel (LP-CV stencil,
                    KMeans, morphology, CCL, watershed, regionprops, FFT
                    registration, NL-means)
   L1 io/           CZI/NPY ingestion, experiment tables, output writers

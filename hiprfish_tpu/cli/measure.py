@@ -26,13 +26,12 @@ def measure_reference_images(image_names, cal_toggle="F",
     sample = tables.sample_from_image_name(image_names[0])
     print(f"Analyzing sample {sample}...")
     stack = iio.load_image_stack(image_names)
-    import jax
+    from hiprfish_tpu.utils.platform import policy
 
-    if jax.default_backend() not in ("cpu", "gpu"):
-        # Single-program engine: one device launch instead of hundreds
-        # (critical under dispatch-latency-bound TPU runtimes).
+    if policy().cli_engine == "fused":
+        # Single-program engine (the one the bench times): one device
+        # launch instead of hundreds.
         from hiprfish_tpu.pipeline import fused_ecoli
-        import jax.numpy as jnp
 
         seg, n_cells, registered, _ = fused_ecoli.segment_ecoli_device(
             tuple(jnp.asarray(a) for a in stack), cfg, max_cells)

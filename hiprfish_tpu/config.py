@@ -1,4 +1,4 @@
-"""Typed configuration for the HiPR-FISH TPU pipeline.
+"""Typed configuration for the HiPR-FISH pipeline.
 
 The reference scatters its constants across scripts (laser lists, patch=11,
 nphi=9, size gates 600/100/60/50/10, shift clamp 15, n_neighbors=25,
@@ -131,8 +131,8 @@ class SegmentationConfig:
     # Storage dtype of the registered multi-channel cube inside the FUSED
     # device engines (pipeline/fused.py, fused_ecoli.py). The cube is the
     # pipelines' largest buffer (1.5 GB at 2000^2 x 95 f32) and is consumed
-    # only by per-cell spectral sums; bfloat16 halves the roll/concat/stats
-    # HBM traffic (register stage 18.6 -> 12.3 ms measured, exp_register).
+    # only by per-cell spectral sums; bfloat16 halves its roll/concat/stats
+    # memory traffic.
     # Quantization (~2^-9 relative per pixel) averages out over each cell's
     # ~200 px: barcode calls are identical on the 2000^2 bench fixtures and
     # the fused-vs-host equivalence tests assert call agreement. The
@@ -166,9 +166,8 @@ class SegmentationConfig:
     # Doubling cap for the id floods' segmented scans: passes per fixpoint
     # round scale with log2(cap), and a cap below the largest component
     # extent only adds rounds, never changes the result (labeling.py).
-    # ~the cell extent is the sweet spot: the PROFILE_r03 TPU sweep on the
-    # 2020x2020x170 flagship measured segment 43.0 s @ cap 32 vs 34.7 s
-    # @ cap 16, both bit-exact (9408/9408 cells, accuracy 1.0).
+    # ~the cell extent is the sweet spot (both caps are bit-exact on the
+    # 2020x2020x170 flagship: 9408/9408 cells, accuracy 1.0).
     scan_cap: int = 16
 
     # biofilm epithelial-region detection (biofilm_analysis.py:404-418)

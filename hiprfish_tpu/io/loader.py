@@ -3,7 +3,7 @@
 The reference's Snakemake design re-opens a JVM per FOV process; here a
 thread pool decodes the next FOVs' per-laser planes (CZI via the native C++
 decoder, or npy) and optionally stages them onto the device while the current
-FOV computes — so the TPU never waits on ingest.
+FOV computes — so the device never waits on ingest.
 """
 
 from __future__ import annotations

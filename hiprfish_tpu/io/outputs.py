@@ -18,9 +18,10 @@ its results so later stages (and reruns) reload from disk:
 from __future__ import annotations
 
 import colorsys
+import struct
+import zlib
 
 import numpy as np
-import pandas as pd
 
 
 def save_avgint_csv(path: str, avgint: np.ndarray) -> None:
@@ -30,6 +31,8 @@ def save_avgint_csv(path: str, avgint: np.ndarray) -> None:
 
 def save_avgint_norm_csv_with_header(path: str, avgint_norm: np.ndarray) -> None:
     """Synthetic-community style: pandas default integer-column header."""
+    import pandas as pd
+
     pd.DataFrame(np.asarray(avgint_norm)).to_csv(path, index=None)
 
 
@@ -123,9 +126,57 @@ def _add_scalebar(ax, shape, pixel_um: float, framed: bool) -> None:
             fontsize=8, family="sans-serif")
 
 
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """Write an (H, W, 3) RGB image in [0, 1] (or uint8) as an 8-bit PNG
+    with numpy and zlib alone."""
+    a = np.asarray(rgb)
+    if a.dtype != np.uint8:
+        a = (np.clip(a, 0, 1) * 255 + 0.5).astype(np.uint8)
+    h, w = a.shape[:2]
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          a.reshape(h, w * 3)], axis=1).tobytes()
+
+    def chunk(tag, data):
+        body = tag + data
+        return (struct.pack(">I", len(data)) + body
+                + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 6))
+                + chunk(b"IEND", b""))
+
+
+def _draw_scalebar_pixels(rgb: np.ndarray, pixel_um: float,
+                          framed: bool) -> np.ndarray:
+    """The scale bar of _add_scalebar drawn straight into the pixels (no
+    text label), for writers without matplotlib."""
+    out = np.array(rgb, np.float32, copy=True)
+    h, w = out.shape[:2]
+    bar_px = int(round(_nice_bar_um(w * pixel_um) / pixel_um))
+    bar_h = max(int(round(h * 0.012)), 1)
+    x1 = int(w - 0.04 * w)
+    y1 = int(h - 0.04 * h)
+    if framed:
+        fy0 = max(y1 - 5 * bar_h - int(0.035 * h), 0)
+        fx0 = max(x1 - bar_px - int(0.015 * w), 0)
+        out[fy0:min(y1 + int(0.015 * h), h), fx0:min(x1 + int(0.015 * w), w)] \
+            *= 0.35
+    out[max(y1 - bar_h, 0):y1, max(x1 - bar_px, 0):x1] = 1.0
+    return out
+
+
 def _save_image_png(rgb: np.ndarray, path: str, pixel_um: float = None,
                     framed: bool = False) -> None:
-    import matplotlib
+    try:
+        import matplotlib
+    except ImportError:
+        rgb = np.clip(rgb, 0, 1)
+        if pixel_um:
+            rgb = _draw_scalebar_pixels(rgb, float(pixel_um), framed)
+        write_png(path, rgb)
+        return
 
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt

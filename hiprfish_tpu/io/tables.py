@@ -15,9 +15,10 @@ import dataclasses
 import json
 import os
 import re
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
-import pandas as pd
+if TYPE_CHECKING:
+    import pandas as pd
 
 
 @dataclasses.dataclass
@@ -43,7 +44,9 @@ class WorkflowConfig:
         )
 
 
-def read_image_table(path: str) -> pd.DataFrame:
+def read_image_table(path: str) -> "pd.DataFrame":
+    import pandas as pd
+
     return pd.read_csv(path)
 
 
@@ -95,6 +98,8 @@ def _row_get(row, key, default=None):
         val = row[key]
     except (KeyError, IndexError):
         return default
+    import pandas as pd
+
     if pd.isna(val):
         return default
     return val
@@ -147,6 +152,8 @@ def reference_clf_path_from_row(data_dir: str, row) -> str:
     return path("reference_simulate_{}.pkl".format(spc))
 
 
-def read_probe_design(path: str) -> pd.DataFrame:
+def read_probe_design(path: str) -> "pd.DataFrame":
     """Probe-design CSV with string barcode codes (biofilm_analysis.py:1428)."""
+    import pandas as pd
+
     return pd.read_csv(path, dtype={"code": str})

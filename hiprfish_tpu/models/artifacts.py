@@ -9,7 +9,7 @@ over (ecoli/Snakefile:44-48).
 
 Legacy interop: ``load_reference_svc`` re-expresses a pickled sklearn RBF-SVC
 as stored support vectors + coefficients evaluated with one JAX GEMM, so
-reference-trained check SVCs can be scored on TPU for parity testing
+reference-trained check SVCs can be scored on the device for parity testing
 (requires sklearn only to unpickle).
 """
 
@@ -85,7 +85,7 @@ def load_classifier(path: str) -> SpectralClassifier:
 
 
 class JaxRbfSvc:
-    """An sklearn RBF SVC re-expressed as JAX GEMMs for TPU scoring.
+    """An sklearn RBF SVC re-expressed as JAX GEMMs for device scoring.
 
     decision(x) = sum_i dual_coef_i * exp(-gamma ||x - sv_i||^2) + b, with
     one-vs-one voting for multiclass — numerically identical to
@@ -206,7 +206,7 @@ class JaxRbfSvc:
 
 
 def load_reference_svc(path: str) -> JaxRbfSvc:
-    """Load a reference joblib SVC pickle and wrap it for TPU scoring."""
+    """Load a reference joblib SVC pickle and wrap it for device scoring."""
     import joblib
 
     obj = joblib.load(path)

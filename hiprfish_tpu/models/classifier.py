@@ -1,4 +1,4 @@
-"""TPU-native spectral barcode classifier (replaces UMAP.transform + SVC).
+"""Spectral barcode classifier (replaces UMAP.transform + SVC).
 
 The reference classifies per-cell spectra by (a) predicting per-laser-block
 "check bits" with per-block RBF SVCs, (b) embedding the (spectrum + check
@@ -7,8 +7,8 @@ block-cosine metric, and (c) an RBF SVC over the 2-D embedding
 (image_classification.py:38-72, train_reference.py:2037-2044). UMAP.transform
 is approximate kNN against the training set under that metric followed by an
 optimization — so the decision structure is fundamentally "metric-space
-nearest neighbors". Here that structure is implemented directly and
-TPU-shaped:
+nearest neighbors". Here that structure is implemented directly, as
+dense matrix work:
 
   * check bits: small MLP heads per block trained with optax (sigmoid
     probability, threshold 0.5) — replaces svm.SVC(C=10, gamma=0.5) per block;
@@ -64,10 +64,10 @@ def _train_check_head(key, x, y, init_params, steps: int, lr: float):
     """Binary-cross-entropy training of one check head with Adam.
 
     Minibatches are contiguous dynamic slices of a once-shuffled copy of the
-    data — a per-step random-index gather from the full training matrix
-    inside the scan measures ~600 s for the 10-bit build (6 heads x 300
-    steps x 4096 rows from (204600, 32)); one up-front permutation plus
-    dynamic_slice is the TPU-shaped formulation of the same SGD."""
+    data instead of a per-step random-index gather from the full training
+    matrix inside the scan (6 heads x 300 steps x 4096 rows from
+    (204600, 32) for the 10-bit build): one up-front permutation plus
+    dynamic_slice is the same SGD without the gathers."""
     tx = optax.adam(lr)
     opt_state = tx.init(init_params)
     n = x.shape[0]
@@ -209,11 +209,10 @@ def _knn_predict(
     temperature: float,
 ):
     d = metrics.block_cosine_distance_matrix(q, train, blocks, check_slice)
-    # TPU-native approximate k-NN selection (recall vs exact sort; 0.999
-    # keeps the true nearest neighbor with high probability, which matters
-    # now that high-temperature voting behaves like 1-NN).
+    # exact k-NN selection: on the GPU approx_max_k lowers to the same
+    # sort-based top-k and was no faster (tools/kernel_bench.py)
     k = min(k, train.shape[0] - 1) if train.shape[0] > 1 else 1
-    neg_d, idx = jax.lax.approx_max_k(-d, k, recall_target=0.999)
+    neg_d, idx = jax.lax.top_k(-d, k)
     nb_labels = labels[idx]                            # (N, k)
     w = jax.nn.softmax(neg_d * temperature, axis=1)    # exp(-d*T) normalized
     n = q.shape[0]
@@ -248,7 +247,7 @@ def train_classifier(
     """Fit the classifier: check heads on (optionally scaled) block slices,
     and the kNN reference matrix = [spectra, check bits] under the gated
     metric — the training recipe of train_reference.py:2034-2044 with the
-    SVCs replaced by TPU-native heads.
+    SVCs replaced by MLP check heads.
 
     The stored kNN matrix is thinned one of two ways: prototype averaging
     (``knn_prototypes_per_class``, the default — 8 noise-averaged

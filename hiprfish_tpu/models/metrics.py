@@ -1,10 +1,10 @@
-"""Per-laser-block spectral distances as batched MXU matmuls.
+"""Per-laser-block spectral distances as batched matmuls.
 
 The reference defines ~12 numba-JIT scalar metrics (channel_cosine_intensity
 and variants, hiprfish_imaging_train_reference.py:223-1387) that UMAP calls
-pairwise — O(N^2) scalar kernel invocations. The TPU formulation computes the
-whole (N, M) distance matrix at once: each laser block's cosine similarity is
-one normalized matmul (MXU), the check-bit gate is an element-wise select on
+pairwise — O(N^2) scalar kernel invocations. Here the whole (N, M) distance
+matrix is computed at once: each laser block's cosine similarity is
+one normalized matmul, the check-bit gate is an element-wise select on
 the result, so the entire custom metric is a handful of GEMMs + fused
 element-wise ops.
 
@@ -24,13 +24,19 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 
+# Every distance dot runs in full f32: at the backend's default precision an
+# f32 dot may run in TF32 (~3 decimal digits), enough to reorder near-tied
+# neighbours and flip a kNN barcode call.
+_PREC = jax.lax.Precision.HIGHEST
+
 
 def _block_cosine_dist(xb: jax.Array, yb: jax.Array) -> jax.Array:
     """(N, M) cosine distances between block slices, with the reference's
     zero-norm conventions."""
     nx = jnp.sqrt(jnp.sum(xb * xb, axis=1))
     ny = jnp.sqrt(jnp.sum(yb * yb, axis=1))
-    dots = jnp.dot(xb, yb.T, preferred_element_type=jnp.float32)
+    dots = jnp.dot(xb, yb.T, preferred_element_type=jnp.float32,
+                   precision=_PREC)
     denom = nx[:, None] * ny[None, :]
     cos = jnp.where(denom > 0, dots / jnp.maximum(denom, 1e-30), 0.0)
     dist = 1.0 - cos
@@ -78,7 +84,7 @@ def block_cosine_distance_matrix(
     both-zero rule (distance 0) subtracts the (N, M) both-zero block count
     z_x @ z_y^T. The old per-block form materialized 7 (N, M) distance
     temporaries plus ~20 (N, M) elementwise passes; this form is 2 wide
-    GEMMs + 3 thin ones + one select, all MXU-shaped.
+    GEMMs + 3 thin ones + one select.
     """
     x = x.astype(jnp.float32)
     y = y.astype(jnp.float32)
@@ -87,7 +93,8 @@ def block_cosine_distance_matrix(
     yn, yz = _block_normalize(y, blocks)
     dot = functools.partial(jax.lax.dot_general,
                             dimension_numbers=(((1,), (1,)), ((), ())),
-                            preferred_element_type=jnp.float32)
+                            preferred_element_type=jnp.float32,
+                            precision=_PREC)
     cos_sum = dot(xn, yn)                   # sum_b cos_b ((N, M), one GEMM)
     n_both_zero = dot(xz, yz)               # both-zero blocks per pair
     ungated = (n_blocks - cos_sum - n_both_zero) / n_blocks
@@ -151,7 +158,8 @@ def correlation_distance_matrix(x: jax.Array, y: jax.Array) -> jax.Array:
     yc = y - jnp.mean(y, axis=1, keepdims=True)
     xn = xc / jnp.maximum(jnp.linalg.norm(xc, axis=1, keepdims=True), 1e-30)
     yn = yc / jnp.maximum(jnp.linalg.norm(yc, axis=1, keepdims=True), 1e-30)
-    return 1.0 - jnp.dot(xn, yn.T, preferred_element_type=jnp.float32)
+    return 1.0 - jnp.dot(xn, yn.T, preferred_element_type=jnp.float32,
+                         precision=_PREC)
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +199,8 @@ def _ref_gated_cosine_matrix(x, y, blocks, check_slice, gate_bits,
     diff = (
         jnp.sum(xc, axis=1)[:, None]
         + jnp.sum(yc, axis=1)[None, :]
-        - 2.0 * jnp.dot(xc, yc.T, preferred_element_type=jnp.float32)
+        - 2.0 * jnp.dot(xc, yc.T, preferred_element_type=jnp.float32,
+                        precision=_PREC)
     )
     agree = jnp.abs(diff) < 0.01
     gated = sum(
@@ -223,7 +232,8 @@ def _ref_chi_matrix(x, y, check_slice, denom):
     d = jnp.sum((xb - yb) ** 2 / jnp.maximum(xb + yb, 1e-30), axis=-1) / denom
     xc, yc = x[:, clo:chi], y[:, clo:chi]
     diff = (jnp.sum(xc, axis=1)[:, None] + jnp.sum(yc, axis=1)[None, :]
-            - 2.0 * jnp.dot(xc, yc.T, preferred_element_type=jnp.float32))
+            - 2.0 * jnp.dot(xc, yc.T, preferred_element_type=jnp.float32,
+                        precision=_PREC))
     return jnp.where(jnp.abs(diff) < 0.01, d, 1.0)
 
 

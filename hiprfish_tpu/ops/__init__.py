@@ -1,4 +1,4 @@
-"""L0 kernel layer: TPU-native equivalents of the reference's native kernels.
+"""L0 kernel layer: device equivalents of the reference's native kernels.
 
 Reference native components (SURVEY.md §2.1):
   * neighbor2d.pyx line_profile_2d_v2   -> line_profile.line_profile_2d /
@@ -13,4 +13,5 @@ Reference native components (SURVEY.md §2.1):
   * skimage regionprops                 -> regionprops.*
   * skimage register_translation        -> register.register_translation
   * skimage denoise_nl_means            -> denoise.denoise_nl_means
+                                           (+ nlm_triton kernel on the GPU)
 """

@@ -1,4 +1,4 @@
-"""Non-local-means denoising on TPU.
+"""Non-local-means denoising.
 
 Replaces skimage.restoration.denoise_nl_means(h=0.02) used ahead of the LP-CV
 enhancement (multispecies_spectral_image_measurement.py:108,
@@ -6,7 +6,11 @@ biofilm_analysis.py:350). The fast-mode NLM algorithm — per search offset,
 compare patch means via a box filter of the squared difference image —
 vectorizes cleanly: lax.scan over the (2d+1)^2 search offsets, each step a
 roll + box filter + fused exp/accumulate. The box filter is a separable
-cumulative-sum difference, so one scan step is O(HW).
+sum of statically shifted slices, which XLA fuses into the step.
+
+``denoise_nl_means`` is the plain reference; ``denoise_nl_means_auto``
+picks the Pallas-Triton kernel (ops/nlm_triton.py) where the platform
+policy says it is faster (utils/platform.policy).
 """
 
 from __future__ import annotations
@@ -19,16 +23,14 @@ import numpy as np
 
 
 def _box_mean(img: jax.Array, size: int):
-    """Mean filter with a (size x size) window, edge-padded, same-size out."""
+    """Mean filter with a (size x size) window, edge-padded, same-size out:
+    a separable sum of ``size`` statically shifted slices per axis (one
+    fused elementwise pass each, and no cumulative-sum cancellation)."""
     half = size // 2
+    h, w = img.shape
     p = jnp.pad(img, half, mode="edge")
-    # Integral-image trick along each axis.
-    c = jnp.cumsum(p, axis=0)
-    c = jnp.pad(c, ((1, 0), (0, 0)))
-    rows = c[size:, :] - c[:-size, :]
-    c2 = jnp.cumsum(rows, axis=1)
-    c2 = jnp.pad(c2, ((0, 0), (1, 0)))
-    out = c2[:, size:] - c2[:, :-size]
+    rows = sum(p[k:k + h, :] for k in range(size))
+    out = sum(rows[:, k:k + w] for k in range(size))
     return out / (size * size)
 
 
@@ -59,8 +61,11 @@ def denoise_nl_means(
     """
     img = image.astype(jnp.float32)
     pd = patch_distance
-    # Pad so wrap-around from jnp.roll never contaminates the valid region.
-    padded = jnp.pad(img, pd, mode="reflect")
+    # Pad by the search distance plus the patch radius (skimage's margin):
+    # every patch of every offset an output pixel reads then lies inside
+    # the reflected image, so jnp.roll's wrap-around never reaches it.
+    pad = pd + patch_size // 2
+    padded = jnp.pad(img, pad, mode="reflect")
 
     # Only half the search window is scanned: the patch distance is
     # symmetric, D_{-o}(p) = D_o(p+o), so each offset o also yields the -o
@@ -93,17 +98,18 @@ def denoise_nl_means(
         step, (padded, jnp.ones_like(padded)), offsets
     )
     out = acc / jnp.maximum(wacc, 1e-12)
-    return out[pd:-pd, pd:-pd]
+    return out[pad:-pad, pad:-pad]
 
 
 def denoise_nl_means_auto(image, h: float = 0.02, patch_size: int = 7,
                           patch_distance: int = 11):
-    """Backend dispatcher: the Pallas VMEM-tiled kernel on TPU, the XLA scan
-    formulation elsewhere. Decided at trace time."""
-    import jax
+    """Dispatcher decided at trace time by the platform policy: the
+    Pallas-Triton kernel where it is the measured winner, the XLA scan
+    elsewhere."""
+    from hiprfish_tpu.utils.platform import policy
 
-    if jax.default_backend() not in ("cpu", "gpu"):
-        from hiprfish_tpu.ops.nlm_pallas import denoise_nl_means_pallas
+    if policy().nlm_kernel == "triton":
+        from hiprfish_tpu.ops.nlm_triton import denoise_nl_means_triton
 
-        return denoise_nl_means_pallas(image, h, patch_size, patch_distance)
+        return denoise_nl_means_triton(image, h, patch_size, patch_distance)
     return denoise_nl_means(image, h, patch_size, patch_distance)

@@ -29,10 +29,9 @@ def _value_histogram(values: jax.Array, n_bins: int):
     span = jnp.maximum(vmax - vmin, 1e-12)
     max_hist = 1 << 19
     if v.shape[0] > max_hist:
-        # Subsample whole contiguous 512-lane blocks at a row stride, not
-        # a flat element stride: v[::7] is a lane-strided gather that costs
-        # more than the histogram scatter itself (measured 2000^2: 7.6 ms
-        # with v[::7] vs 3.1 ms with block rows; same statistics).
+        # Subsample whole contiguous 512-element blocks at a row stride,
+        # not a flat element stride: v[::7] is a strided gather that can
+        # cost more than the histogram scatter itself (same statistics).
         blk = 512
         nb = v.shape[0] // blk
         stride = -(-nb * blk // max_hist)
@@ -40,8 +39,8 @@ def _value_histogram(values: jax.Array, n_bins: int):
     else:
         vs = v
     idx = jnp.clip(((vs - vmin) / span * (n_bins - 1)).astype(jnp.int32), 0, n_bins - 1)
-    # One fused scatter for [count, value] — scatters are the dominant cost
-    # of the whole call on TPU, so halving them matters.
+    # One fused scatter for [count, value] instead of two — the scatter is
+    # the full-size pass of the whole call.
     cs = jnp.zeros((n_bins, 2), jnp.float32).at[idx].add(
         jnp.stack([jnp.ones_like(vs), vs], axis=-1))
     counts = cs[:, 0]
@@ -75,8 +74,8 @@ def _lloyd_from_histogram(counts, bin_val, vmin, vmax, span, k: int,
     # spread handles balanced modes, value-range spread rescues the
     # tiny-bright-mode case (cells a small pixel fraction of the FOV), and a
     # max-anchored start guarantees a basin for a far-out bright mode.
-    # Quantiles come from the histogram CDF (searchsorted over n_bins) — an
-    # O(N) full sort would dominate the whole call on TPU.
+    # Quantiles come from the histogram CDF (searchsorted over n_bins)
+    # instead of a full O(N log N) sort of the image.
     n_bins = counts.shape[0]
     qs = (jnp.arange(k, dtype=jnp.float32) + 0.5) / k
     cdf = jnp.cumsum(counts)

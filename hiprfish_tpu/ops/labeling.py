@@ -1,4 +1,4 @@
-"""Connected-component labeling and label utilities, jittable on TPU.
+"""Connected-component labeling and label utilities, jittable.
 
 The reference relies on skimage.measure.label / relabel_sequential /
 clear_border / remove_small_objects throughout its segmentation engines
@@ -64,8 +64,8 @@ def _run_min_scan(values: jax.Array, mask: jax.Array, axis: int,
 
     Each element is the function f(x) = gate ? min(x, v) : v; composition of
     such functions is (gA & gB, gB ? min(cA, cB) : cB), which is associative,
-    so the whole propagation is one log-depth scan (no gathers — the
-    TPU-friendly formulation of flood labeling).
+    so the whole propagation is one log-depth scan (no gathers — a dense
+    formulation of flood labeling).
 
     ``max_run`` caps the doubling distance: when the caller knows every
     mask run is shorter (components bounded by a tile margin / cell size),
@@ -127,11 +127,10 @@ def _block_pool(x: jax.Array, c: int, op: str) -> jax.Array:
     """Factor-c block reduce per axis (pad with False — conservative).
 
     Reduced axis-by-axis with c strided slices per axis, NOT a single
-    reshape to (s0/c, c, s1/c, c, ...): on TPU that 2*ndim-rank bool
-    intermediate puts a length-c pair in the two minor positions and the
-    (8,128) tile padding inflates it ~32x — a 0.7 GB volume mask became a
-    22.8 GB allocation and the whole-volume seeds program OOM'd at
-    compile (measured 2026-08-18). Strided slices keep the array rank-ndim
+    reshape to (s0/c, c, s1/c, c, ...): that 2*ndim-rank bool
+    intermediate puts a length-c pair in the two minor positions, which a
+    tiled device layout pads many times over. Strided slices keep the
+    array rank-ndim
     with large minor dims throughout."""
     pads = [(0, (-s) % c) for s in x.shape]
     if any(p[1] for p in pads):
@@ -159,8 +158,8 @@ def flood_reach(seeds: jax.Array, mask: jax.Array, connectivity: int = 1,
     fully-inside-mask blocks first (two face-adjacent solid blocks are
     always fine-connected, so every voxel of a reached solid block is a
     valid seed), then run the exact fine flood from the upsampled seeds —
-    it converges in a couple of rounds instead of tracing the whole domain
-    (measured 1.1 s -> ~0.3 s on a 88M-voxel slab). Exactness is never at
+    it converges in a couple of rounds instead of tracing the whole domain.
+    Exactness is never at
     stake: the coarse phase only ADDS provably-reachable seeds and the fine
     loop still iterates to its fixed point."""
     c = 4
@@ -360,7 +359,7 @@ def filter_and_relabel(labels: jax.Array, min_size: int,
 
     One counts scatter, one border scatter, one cumsum, and a single gather
     build the final sequential labels — vs 3 gathers + 3 scatters when the
-    three ops run separately (the gather is the expensive primitive on TPU).
+    three ops run separately.
     Returns (new_labels, n_labels).
     """
     size = labels.size

@@ -1,4 +1,4 @@
-"""Line-profile (LP-CV) edge-enhancement stencil, TPU-native.
+"""Line-profile (LP-CV) edge-enhancement stencil.
 
 The reference computes, for every pixel/voxel, intensity profiles along a set
 of line orientations through the pixel, min-max normalizes each profile, takes
@@ -8,16 +8,15 @@ all watershed seeding (reference: neighbor2d.pyx:8-64 [2D],
 neighbor.pyx:115-349 [3D]; enhancement math:
 hiprfish_imaging_multispecies_spectral_image_measurement.py:110-124).
 
-TPU design
-----------
+Design
+------
 The stencil is a *fixed* sparse gather: for orientation t and sample s the
 source offset is a compile-time constant. So instead of a per-pixel scalar
 loop (the Cython design), each (t, s) pair becomes one statically-shifted view
 of the padded image, and the whole enhancement is a tree of fused element-wise
 min/max/add ops over those views — no (H, W, T, S) intermediate is ever
 materialized in the fused path. XLA fuses the ~T*S slices into a handful of
-HBM passes; a Pallas kernel (ops/lp_pallas.py) fuses it to exactly one read +
-one write per pixel.
+device-memory passes.
 
 All functions are pure and jit-safe; tables are built in numpy at trace time.
 """
@@ -160,18 +159,10 @@ def line_profile_2d(image_padded: jax.Array, patch_size: int = 11, phi_range: in
     return jnp.stack(views, axis=2)
 
 
-@functools.partial(jax.jit, static_argnums=(1, 2, 3))
-def line_profile_3d(
-    volume_padded: jax.Array,
-    patch_size: int = 11,
-    theta_range: int = 9,
-    phi_range: int = 9,
-):
-    """Center-normalized 3D line profiles.
-
-    Equivalent to neighbor.pyx:line_profile_memory_efficient_v2: input
-    (X+p-1, Y+p-1, Z+p-1) padded volume, output (X, Y, Z, n_orient) of
-    per-orientation min-max-normalized center samples.
+def _rnc_3d(volume_padded: jax.Array, patch_size: int, theta_range: int,
+            phi_range: int) -> jax.Array:
+    """(n_orient, X, Y, Z) per-orientation min-max-normalized center
+    samples of a padded volume (orientation axis leading).
 
     The 72 orientations x 11 samples are walked with lax.scan +
     dynamic_slice (rather than 792 unrolled slices) to keep the compiled
@@ -183,11 +174,11 @@ def line_profile_3d(
     y = yp - (patch_size - 1)
     z = zp - (patch_size - 1)
     center = (patch_size - 1) // 2
-    # The scan is HBM-bandwidth-bound (72 orientations x 11 samples, each a
+    # The scan is memory-bound (72 orientations x 11 samples, each a
     # shifted read + two accumulator updates); min/max selection commutes
     # with monotone rounding, so accumulating in the caller-chosen dtype
-    # (bf16 on the TPU path) halves the traffic. The rnc ratio is formed in
-    # f32.
+    # (bf16 where the platform policy says so) halves the traffic. The rnc
+    # ratio is formed in f32.
     vol = volume_padded
     acc_dtype = vol.dtype if vol.dtype == jnp.bfloat16 else jnp.float32
     vol = vol.astype(acc_dtype)
@@ -211,7 +202,24 @@ def line_profile_3d(
         return None, rnc
 
     _, rncs = jax.lax.scan(per_orientation, None, table)
-    return jnp.moveaxis(rncs, 0, -1)
+    return rncs
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2, 3))
+def line_profile_3d(
+    volume_padded: jax.Array,
+    patch_size: int = 11,
+    theta_range: int = 9,
+    phi_range: int = 9,
+):
+    """Center-normalized 3D line profiles.
+
+    Equivalent to neighbor.pyx:line_profile_memory_efficient_v2: input
+    (X+p-1, Y+p-1, Z+p-1) padded volume, output (X, Y, Z, n_orient) of
+    per-orientation min-max-normalized center samples.
+    """
+    return jnp.moveaxis(
+        _rnc_3d(volume_padded, patch_size, theta_range, phi_range), 0, -1)
 
 
 @functools.partial(jax.jit, static_argnums=(1, 2, 3))
@@ -288,11 +296,19 @@ def neighbor_average(volume_padded: jax.Array, patch_size: int = 11):
 # ---------------------------------------------------------------------------
 
 
+def _quartile_ranks(t: int):
+    """((lo, hi, frac) of the 25th, same of the 75th) percentile of t
+    values with linear interpolation (np.percentile's default)."""
+    q25, q75 = 0.25 * (t - 1), 0.75 * (t - 1)
+    lo25, hi25 = int(np.floor(q25)), int(np.ceil(q25))
+    lo75, hi75 = int(np.floor(q75)), int(np.ceil(q75))
+    return (lo25, hi25, q25 - lo25), (lo75, hi75, q75 - lo75)
+
+
 def _quartiles_small(values, q25_rank: float, q75_rank: float):
     """25th/75th percentiles along the last axis with linear interpolation.
 
-    ``values`` has a small static last axis (9 or 72 orientations); sorting it
-    lowers to a fixed compare-exchange network on the VPU.
+    ``values`` has a small static last axis (9 or 72 orientations).
     """
     s = jnp.sort(values, axis=-1)
     lo25, hi25 = int(np.floor(q25_rank)), int(np.ceil(q25_rank))
@@ -302,6 +318,64 @@ def _quartiles_small(values, q25_rank: float, q75_rank: float):
     lq = s[..., lo25] * (1 - f25) + s[..., hi25] * f25
     uq = s[..., lo75] * (1 - f75) + s[..., hi75] * f75
     return lq, uq
+
+
+@functools.lru_cache(maxsize=None)
+def _batcher_comparators(n: int):
+    """Batcher odd-even mergesort comparator list (ascending) for n inputs.
+
+    Generated for the next power of two; with +inf padding at the top,
+    every comparator touching an index >= n is a no-op and is dropped.
+    """
+    p2 = 1
+    while p2 < n:
+        p2 *= 2
+    comps = []
+    p = 1
+    while p < p2:
+        k = p
+        while k >= 1:
+            for j in range(k % p, p2 - k, 2 * k):
+                for i in range(0, k):
+                    if (i + j) // (2 * p) == (i + j + k) // (2 * p):
+                        a, b = i + j, i + j + k
+                        if b < n:
+                            comps.append((a, b))
+            k //= 2
+        p *= 2
+    return tuple(comps)
+
+
+@functools.lru_cache(maxsize=None)
+def selection_network(n: int, outputs: tuple):
+    """Comparators (a, b) whose removal could change the given output
+    ranks — backward prune of the full Batcher network. Applying them in
+    order leaves the k-th smallest at index k for every k in ``outputs``."""
+    needed = set(outputs)
+    kept = []
+    for (a, b) in reversed(_batcher_comparators(n)):
+        if a in needed or b in needed:
+            kept.append((a, b))
+            needed.add(a)
+            needed.add(b)
+    return tuple(reversed(kept))
+
+
+def _lp_cv_combine_network(rncs: jax.Array) -> jax.Array:
+    """_lp_cv_combine over a LEADING orientation axis (T, ...), with the
+    quartiles from a selection network pruned to the four order statistics
+    the interpolation reads: pure elementwise min/max, so no sort and no
+    move of the orientation axis to the minor dimension."""
+    t = rncs.shape[0]
+    (lo25, hi25, f25), (lo75, hi75, f75) = _quartile_ranks(t)
+    vals = [rncs[o] for o in range(t)]
+    for a, b in selection_network(t, (lo25, hi25, lo75, hi75)):
+        vals[a], vals[b] = (jnp.minimum(vals[a], vals[b]),
+                            jnp.maximum(vals[a], vals[b]))
+    lq = vals[lo25] * (1 - f25) + vals[hi25] * f25
+    uq = vals[lo75] * (1 - f75) + vals[hi75] * f75
+    qcv = jnp.where(uq > 0, (uq - lq) / (uq + lq + 1e-8), 0.0)
+    return jnp.mean(rncs, axis=0) * (1.0 - qcv)
 
 
 def _lp_cv_combine(rnc_stack: jax.Array) -> jax.Array:

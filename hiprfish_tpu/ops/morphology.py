@@ -7,11 +7,10 @@ closing/dilation for epithelial-region detection: biofilm_analysis.py:407-413).
 
 Design notes:
   * Small structuring elements (the default cross) are unions/intersections of
-    statically shifted copies — fully fused element-wise on the VPU.
+    statically shifted copies — fully fused element-wise.
   * disk(r) for r ~ 100 would need 2r+1 shifted copies per op; instead
     dilation by a disk is computed as an FFT convolution with the disk kernel
-    thresholded at > 0.5 — O(HW log HW) regardless of radius, which is the
-    TPU-appropriate formulation.
+    thresholded at > 0.5 — O(HW log HW) regardless of radius.
   * fill-holes routes through connected-component labeling of the complement.
 """
 
@@ -109,9 +108,9 @@ def binary_fill_holes(mask: jax.Array, connectivity: int = 1,
     the complement (no label ids, no scatter/gather).
 
     ``max_run`` (static) caps the or-scans' Hillis-Steele doubling distance.
-    The unbounded doubling tree dominated XLA COMPILE time (13.9 s of the
-    3D tile program's 29 s, measured: ~28 unrolled shift steps per
-    axis-direction per flood, twice via the coarse+fine route); a cap
+    The unbounded doubling tree dominated XLA COMPILE time of the 3D tile
+    program (~28 unrolled shift steps per axis-direction per flood, twice
+    via the coarse+fine route); a cap
     shrinks the loop body ~4x while the flood's while_loop still iterates
     to its exact fixed point — after coarse-block seeding the fine flood
     converges in a couple of rounds regardless, so a cap only slows the

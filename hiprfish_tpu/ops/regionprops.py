@@ -4,8 +4,8 @@ The reference loops skimage.measure.regionprops over every spectral channel —
 95 full-image passes per FOV (spectral_image_measurement.py:153-155) plus
 per-cell shape passes. Here every property lowers to one scatter-add
 (segment_sum) over the label image, and *all* channels are reduced in a single
-pass: mean spectra for C channels is one (N_pixels, C) scatter-add — the
-TPU-shaped formulation (SURVEY.md §7).
+pass: mean spectra for C channels is one (N_pixels, C) scatter-add
+(SURVEY.md §7).
 
 Shape properties (centroid, axis lengths, eccentricity, orientation) follow
 skimage's central-moment definitions (regionprops docs): inertia eigenvalues

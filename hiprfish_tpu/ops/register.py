@@ -1,6 +1,6 @@
 """FFT cross-correlation translation registration.
 
-TPU-native equivalent of skimage.feature.register_translation as used by the
+Equivalent of skimage.feature.register_translation as used by the
 reference for channel registration (spectral_image_measurement.py:46,
 biofilm_analysis.py:327): whole-pixel shifts from the argmax of the FFT
 cross-correlation, then a masked integer shift of the moving image.

@@ -1,13 +1,13 @@
 """Gather/scatter-free per-label statistics and relabeling.
 
-On TPU, a single 4M-element gather or scatter costs ~30 ms regardless of
-table size (measured, tools/microbench_prims.py) — so the classic
-formulations of relabel_sequential / remove_small_objects / per-cell
-measurement (counts scatter-add + table gather, regionprops loops in the
-reference: spectral_image_measurement.py:153-155,
-multispecies_spectral_image_measurement.py:155-157) are the dominant cost of
-the whole segmentation pipeline. This module replaces them with three
-MXU/VPU-shaped primitives:
+The classic formulations of relabel_sequential / remove_small_objects /
+per-cell measurement (counts scatter-add + table gather, regionprops loops in
+the reference: spectral_image_measurement.py:153-155,
+multispecies_spectral_image_measurement.py:155-157) are full-image scatters
+and gathers. This module replaces them with three dense, matmul-shaped
+primitives (designed where full-image gathers and scatters were the
+dominant cost; whether they still win on the GPU is measured by
+tools/kernel_bench.py):
 
   * rank_labels: sequential 1..n relabeling of a min-linear-index label image
     (what ops.labeling.label produces) with ZERO gathers: a label value v is
@@ -20,9 +20,7 @@ MXU/VPU-shaped primitives:
     band-windowed one-hot matmuls. Sequential ids ordered by component
     min-index are *band-local*: all ids occurring in a horizontal stripe of
     the image lie in a narrow contiguous range, so a (band_px, width) one-hot
-    against a sliding id window turns the segment-sum into dense MXU matmuls
-    (~10 ms for 4M px x 67 ch vs ~40 ms for XLA segment_sum, ~75 ms for the
-    scatter formulation).
+    against a sliding id window turns the segment-sum into dense matmuls.
 
   * label_lookup: the inverse broadcast (per-pixel table value) with the same
     windowed one-hot trick — a gather-free remap.
@@ -162,11 +160,11 @@ def _window_onehot(lb: jax.Array, width: int, num_segments: int):
 
 
 def _use_bf16_dots() -> bool:
-    """bf16 one-hot + hi/lo-split features is the TPU fast path (MXU
-    accumulates in f32; halves the dominant one-hot HBM traffic). The CPU
-    backend accumulates bf16 dots in bf16 (measured ~1e-3 relative error),
-    so tests and CPU meshes take the plain f32 path."""
-    return jax.default_backend() not in ("cpu",)
+    """bf16 one-hot + hi/lo-split features (halves the dominant one-hot
+    memory traffic; decided by utils/platform.policy)."""
+    from hiprfish_tpu.utils.platform import policy
+
+    return policy().bf16_dots
 
 
 def _split_dot(oh: jax.Array, feat_f32: jax.Array):
@@ -332,40 +330,6 @@ def _label_stats_exact(labels: jax.Array, image: jax.Array | None,
                       sums, jnp.bool_(False), mom, ah, mc)
 
 
-def _use_pallas() -> bool:
-    """The Pallas kernels (segstats_pallas.py) keep the one-hot and the
-    accumulator in VMEM — ~5x the XLA windowed path on TPU (measured);
-    CPU/GPU take the XLA path."""
-    import os
-
-    if os.environ.get("HIPRFISH_NO_PALLAS_STATS"):
-        return False
-    return jax.default_backend() not in ("cpu", "gpu")
-
-
-def _label_stats_pallas_call(labels, image, aux, image_mask, num_segments,
-                             width, band_px, aux_classes, moments):
-    """Adapter: run the kernel (image in its own dtype, mask as a separate
-    input), unpack the column order of the XLA path."""
-    from hiprfish_tpu.ops import segstats_pallas as sp
-
-    shape = labels.shape
-    h, w = shape[0], int(labels.size // shape[0])
-    has_mask = image_mask is not None
-    acc, spilled = sp.stats_pallas(
-        labels, image, aux, image_mask, num_segments, width, band_px,
-        aux_classes if aux is not None else 0, moments, has_mask, h, w)
-    nmom = 5 if moments else 0
-    nchan = 0 if image is None else image.shape[-1]
-    mom = acc[:, 2:2 + nmom] if moments else None
-    sums = acc[:, 2 + nmom:2 + nmom + nchan]
-    naux = aux_classes if aux is not None else 0
-    ah = acc[:, 2 + nmom + nchan:2 + nmom + nchan + naux] \
-        if aux is not None else None
-    mc = acc[:, -1] if has_mask else None
-    return LabelStats(acc[:, 0], acc[:, 1], sums, spilled, mom, ah, mc)
-
-
 def label_stats(labels: jax.Array, image: jax.Array | None,
                 num_segments: int, width: int = 512,
                 band_px: int | None = None, aux: jax.Array | None = None,
@@ -389,17 +353,11 @@ def label_stats(labels: jax.Array, image: jax.Array | None,
     multiply happens per band inside the feature build, so no masked copy
     of ``image`` is ever materialized in HBM.
     """
-    if _use_pallas():
-        win = _label_stats_pallas_call(labels, image, aux, image_mask,
-                                       num_segments, width,
-                                       _pick_band_px(labels.size, 8192),
-                                       aux_classes, moments)
-    else:
-        if band_px is None:
-            band_px = _pick_band_px(labels.size)
-        win = _label_stats_windowed(labels, image, aux, image_mask,
-                                    num_segments, width, band_px,
-                                    aux_classes, moments)
+    if band_px is None:
+        band_px = _pick_band_px(labels.size)
+    win = _label_stats_windowed(labels, image, aux, image_mask,
+                                num_segments, width, band_px,
+                                aux_classes, moments)
 
     def _exact(l, i, a, m):
         e = _label_stats_exact(l, i, a, m, num_segments, aux_classes,
@@ -465,19 +423,10 @@ def label_lookup(labels: jax.Array, table: jax.Array, width: int = 512,
     2^24 are exact), or ``out_dtype`` when given. Falls back to a real
     gather on window spill.
     """
-    if _use_pallas():
-        from hiprfish_tpu.ops import segstats_pallas as sp
-
-        out, spill = sp.lookup_pallas(labels, table, width,
-                                      _pick_band_px(labels.size, 8192),
-                                      table.shape[0])
-        if out_dtype is not None:
-            out = out.astype(out_dtype)
-    else:
-        if band_px is None:
-            band_px = _pick_band_px(labels.size)
-        out, spill = _label_lookup_windowed(labels, table, width, band_px,
-                                            out_dtype)
+    if band_px is None:
+        band_px = _pick_band_px(labels.size)
+    out, spill = _label_lookup_windowed(labels, table, width, band_px,
+                                        out_dtype)
     dt = out_dtype or jnp.float32
     return jax.lax.cond(
         spill,
@@ -499,8 +448,7 @@ def remove_small_holes_fast(mask: jax.Array, area_threshold: int = 64,
     flood (bool or-scans) isolates the hole pixels first and the CCL+rank
     runs only on THOSE — sparse, hole-diameter-bounded structures whose
     scan doubling caps at ~sqrt(area_threshold) — instead of labeling the
-    entire complement including the image-sized background component
-    (measured 33 ms -> the flood + two capped-scan rounds at 2000^2)."""
+    entire complement including the image-sized background component."""
     from hiprfish_tpu.ops import labeling as lab
 
     m = mask.astype(bool)
@@ -528,7 +476,7 @@ def remove_small_holes_fast(mask: jax.Array, area_threshold: int = 64,
 
     if not exact_fallback:
         # both lax.cond branches compile; the exact fallback embeds a
-        # second whole-image CCL (~5 s of XLA compile at 2000^2, measured)
+        # second whole-image CCL (seconds of XLA compile at 2000^2)
         # for the n >= num_segments case that real images never reach —
         # callers with bounded hole counts trade it for a no-op
         return jax.lax.cond(n < num_segments, fast, lambda s: m, seq)

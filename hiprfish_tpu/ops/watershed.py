@@ -3,7 +3,7 @@
 The reference floods cells with skimage.morphology.watershed(-enhanced image,
 seeds, mask) (spectral_image_measurement.py:113,
 multispecies_spectral_image_measurement.py:154, biofilm_analysis.py:399-400).
-Priority-queue flooding is inherently sequential; the TPU formulation here is
+Priority-queue flooding is inherently sequential; the formulation here is
 the image-foresting-transform watershed: every masked pixel is assigned to the
 marker reachable with the smallest "minimax" path cost, where a path's cost is
 the maximum surface height along it. Iterating

@@ -1,9 +1,9 @@
-"""Spatially sharded kernels with halo exchange over ICI.
+"""Spatially sharded kernels with halo exchange between devices.
 
 The LP-CV stencil needs a (patch_size-1)//2 halo; when a FOV/volume is
 sharded across chips along rows, each shard exchanges its boundary strips
-with its mesh neighbors via ppermute (one hop each way on ICI), then runs the
-fused local kernel. This is the TPU-native version of the reference's halo'd
+with its mesh neighbors via ppermute (one hop each way), then runs the
+fused local kernel. This is the device version of the reference's halo'd
 CPU tiling (200x200+10, biofilm_analysis.py:900-917) — same decomposition,
 but the "tiles" are chips and the halos ride the interconnect.
 """

@@ -11,8 +11,8 @@ Mirrors the reference's two classification front-ends:
   trained scaler, writes {sample}_cell_information.csv with regionprops
   columns (hiprfish_imaging_classify_spectra.py:23-49).
 
-The classifier itself (check heads + gated-metric kNN) is the TPU-native
-artifact from models/classifier.py.
+The classifier itself (check heads + gated-metric kNN) is the artifact
+from models/classifier.py.
 """
 
 from __future__ import annotations

@@ -45,7 +45,7 @@ class FovResult(NamedTuple):
 
 def segment_lpcv_device(stack, calibration, cfg: SegmentationConfig,
                         max_cells: int, denoise: bool = True,
-                        pallas_ok: bool = True, stop_after: str = ""):
+                        stop_after: str = ""):
     """Pure-device LP-CV segmentation of one FOV (multispecies semantics,
     multispecies_spectral_image_measurement.py:78-157). ``stack`` is a tuple
     of per-laser (H, W, C_l) arrays.
@@ -70,8 +70,8 @@ def segment_lpcv_device(stack, calibration, cfg: SegmentationConfig,
         _crop = lambda im: im
     cref = _crop(ref0)
     # The registered cube is consumed only by the per-cell spectral sums;
-    # cfg.registered_dtype (default bf16) halves its roll/concat/stats HBM
-    # traffic (tools/exp_register.py). The KMeans/NLM input (fov_sum) is
+    # cfg.registered_dtype (default bf16) halves its roll/concat/stats
+    # memory traffic. The KMeans/NLM input (fov_sum) is
     # built from the f32 per-laser 2D sums — already computed for
     # registration — rolled by the same shifts (sum of roll == roll of
     # sum), not by re-reading the cube. The calibrated path keeps f32 and
@@ -93,7 +93,7 @@ def segment_lpcv_device(stack, calibration, cfg: SegmentationConfig,
     registered = jnp.concatenate(parts, axis=2)
     if calibration is not None:
         registered = registered / calibration
-    # Materialize ONCE (same hazard as fused_ecoli: the unaligned lane-dim
+    # Materialize ONCE (same hazard as fused_ecoli: the unaligned minor-dim
     # laser concat otherwise re-fuses into the downstream stats pack).
     registered = jax.lax.optimization_barrier(registered)
     if calibration is not None:
@@ -102,19 +102,14 @@ def segment_lpcv_device(stack, calibration, cfg: SegmentationConfig,
     if stop_after == 'register':
         return _ck(sum_norm), registered
     if denoise:
-        nlm = (dn.denoise_nl_means_auto if pallas_ok
-               else dn.denoise_nl_means)
-        den = nlm(sum_norm, cfg.nlm_h, cfg.nlm_patch_size,
-                  cfg.nlm_patch_distance)
+        den = dn.denoise_nl_means_auto(sum_norm, cfg.nlm_h,
+                                       cfg.nlm_patch_size,
+                                       cfg.nlm_patch_distance)
     else:
         den = sum_norm
     if stop_after == 'nlm':
         return _ck(den), registered
-    if pallas_ok:
-        from hiprfish_tpu.ops.lp_pallas import lp_cv_enhance_2d_auto as _lp
-    else:
-        _lp = lp.lp_cv_enhance_2d
-    enhanced = _lp(den, cfg.patch_size, cfg.phi_range)
+    enhanced = lp.lp_cv_enhance_2d(den, cfg.patch_size, cfg.phi_range)
     if stop_after == 'enhance':
         return _ck(enhanced), registered
 
@@ -138,10 +133,10 @@ def segment_lpcv_device(stack, calibration, cfg: SegmentationConfig,
     # presence trick, ops/segstats.py): the watershed then propagates
     # band-local sequential ids directly, which is what makes the one-pass
     # windowed-matmul stats/remap in fov_step possible. Small seeds are
-    # filtered AFTER this single CCL by a windowed count pass — the
-    # pre-filter remove_small_objects ran a second full CCL (~34 ms of the
-    # fused budget, measured); the watershed mask (fg & bkg) is unchanged,
-    # sub-threshold fragments just lose their markers.
+    # filtered AFTER this single CCL by a windowed count pass (the
+    # pre-filter remove_small_objects ran a second full CCL); the
+    # watershed mask (fg & bkg) is unchanged, sub-threshold fragments just
+    # lose their markers.
     # max_run=64: seeds are cell cores; see labeling._run_min_scan
     markers0 = lab.label(seed_mask, 2, cfg.ccl_max_iters, cfg.scan_cap)
     markers_seq, _ = segstats.rank_labels(markers0, 2, cfg.ccl_max_iters,
@@ -184,9 +179,7 @@ def classify_device(avgint_norm, check_params, check_blocks, scaler_mean,
 
     d = metrics.block_cosine_distance_matrix(feats, train_features, blocks,
                                              check_slice)
-    # approx_max_k is the TPU-native k-NN selection (bitonic partial sort);
-    # exact top_k lowers to a full sort and dominates the pipeline.
-    neg_d, idx = jax.lax.approx_max_k(-d, k, recall_target=0.99)
+    neg_d, idx = jax.lax.top_k(-d, k)
     nb = train_labels[idx]
     w = jax.nn.softmax(neg_d * temperature, axis=1)
     n = feats.shape[0]
@@ -201,8 +194,8 @@ def classify_capped(spectra_rows, n_cells, cap, *clf_args):
 
     Real cell counts (~400-2500/FOV) are far below the max_cells=8192 safety
     padding, yet the classifier GEMMs, check-head MLPs and vote scatter all
-    ran over every padded row — the 1023-class kNN alone was 30.8 ms of the
-    244 ms 10-bit step. Labels are sequential (1..n_cells), so when
+    ran over every padded row — the 1023-class kNN was a large share of the
+    10-bit step. Labels are sequential (1..n_cells), so when
     n_cells < cap only rows [:cap] can hold cells; a lax.cond falls back to
     the full-width program for denser scenes, so results are identical for
     any n_cells.
@@ -222,10 +215,10 @@ def classify_capped(spectra_rows, n_cells, cap, *clf_args):
     return jax.lax.cond(n_cells < cap, small, full, spectra_rows)
 
 
-@functools.partial(jax.jit, static_argnums=(2, 3, 4, 5, 6, 7))
+@functools.partial(jax.jit, static_argnums=(2, 3, 4, 5, 6))
 def fov_step(stack, clf_arrays, cfg: SegmentationConfig, max_cells: int,
              clf_static, denoise: bool = True,
-             pallas_ok: bool = True, classify_cap: int = 2048) -> FovResult:
+             classify_cap: int = 2048) -> FovResult:
     """The flagship forward step: raw per-laser planes -> barcode calls.
 
     clf_arrays: dict of classifier arrays (train_features (N, D) f32,
@@ -236,16 +229,14 @@ def fov_step(stack, clf_arrays, cfg: SegmentationConfig, max_cells: int,
     (n_classes, blocks, check_slice, n_channels, k, temperature,
      check_blocks) = clf_static
     seg0, registered = segment_lpcv_device(
-        stack, clf_arrays.get("calibration"), cfg, max_cells, denoise,
-        pallas_ok)
+        stack, clf_arrays.get("calibration"), cfg, max_cells, denoise)
     # One windowed-matmul pass gives every region's pixel count, border
     # contact and full spectral sum (replaces filter_and_relabel +
-    # segment_sum measurement — the two dominant scatter/gather stages,
-    # ~156 ms -> ~25 ms at 2000^2; ops/segstats.py).
-    # width 512: ids in one 16k-pixel band span < ~200 even at 8k dense
-    # cells (ranks are raster-ordered); halving the window halves the
-    # materialized one-hot, the stage's dominant HBM traffic. Window spill
-    # still falls back to the exact path via lax.cond.
+    # segment_sum measurement; ops/segstats.py).
+    # width 256: ids in one 16k-pixel band span < ~200 even at 8k dense
+    # cells (ranks are raster-ordered); a narrower window shrinks the
+    # materialized one-hot, the stage's dominant memory traffic. Window
+    # spill still falls back to the exact path via lax.cond.
     pre_segments = 2 * max_cells
     stats = segstats.label_stats(seg0, registered, pre_segments, width=256)
     keep = (stats.counts >= cfg.lp_cell_min_size) & (stats.border_hits == 0)

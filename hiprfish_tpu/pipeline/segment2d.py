@@ -262,8 +262,7 @@ def segment_lpcv_from_registered(
         sum_norm, cfg.nlm_h, cfg.nlm_patch_size, cfg.nlm_patch_distance
     )
 
-    from hiprfish_tpu.ops.lp_pallas import lp_cv_enhance_2d_auto
-    enhanced = lp_cv_enhance_2d_auto(denoised, cfg.patch_size, cfg.phi_range)
+    enhanced = lp.lp_cv_enhance_2d(denoised, cfg.patch_size, cfg.phi_range)
 
     bkg_src = jnp.log10(denoised + 1e-8) if biofilm else denoised
     bkg = km.brightest_cluster_mask(bkg_src, 2, cfg.kmeans_iters)
@@ -273,7 +272,7 @@ def segment_lpcv_from_registered(
     # the intensity background filter downstream anyway
     # (multispecies...py:152-154), so intersect *first* — identical cell
     # seeds, but the CCL/fill passes run on compact blobs instead of a
-    # near-percolation maze (~8x fewer propagation rounds on TPU).
+    # near-percolation maze (several times fewer propagation rounds).
     fg = km.brightest_cluster_mask(enhanced, 2, cfg.kmeans_iters) & bkg
     # fill(core) & fill(fg) == fill(core): core = filtered opening of fg
     # is a subset of fg, so every core hole is an fg hole (reachability

@@ -50,7 +50,7 @@ class RunLog:
 
 
 def profile_trace(logdir: str):
-    """jax.profiler trace context for TPU timeline capture."""
+    """jax.profiler trace context for device timeline capture."""
     import jax
 
     return jax.profiler.trace(logdir)

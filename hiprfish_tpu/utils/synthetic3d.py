@@ -160,11 +160,11 @@ def channel_chunk_cm(spec: VolumeSpec, n_codes: int, z0, zc: int,
                      spectra_lut: jax.Array, key: jax.Array,
                      dtype=jnp.float32):
     """(C, zc, X, Y) spectral slab — the channels-major layout the streamed
-    measurement wants (channels-last pads C to 128 lanes on TPU).
+    measurement takes.
 
-    ``dtype``: output storage dtype; bf16 halves the slab's HBM write and
-    the measurement kernel's read (the per-cell sums accumulate in f32
-    downstream either way)."""
+    ``dtype``: output storage dtype; bf16 halves the slab's write and the
+    measurement's read (the per-cell sums accumulate in f32 downstream
+    either way)."""
     _, code_idx, profile = truth_chunk(spec, n_codes, z0, zc)
     code_t = jnp.transpose(code_idx, (2, 0, 1))          # (zc, X, Y)
     prof_t = jnp.transpose(profile, (2, 0, 1))

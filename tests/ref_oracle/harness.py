@@ -1,4 +1,4 @@
-"""Shared parity-measurement harness: runs the TPU pipeline and the
+"""Shared parity-measurement harness: runs the system's pipeline and the
 reference oracle on the same synthetic FOVs and reports comparable metrics.
 Used by tests/test_parity_reference.py and tools/make_parity.py.
 """
@@ -55,7 +55,7 @@ def truth_code_per_label(seg: np.ndarray, truth_labels: np.ndarray,
 
 
 def segmentation_parity(fov: dict, pipeline: str, max_cells: int = 512):
-    """Run oracle + TPU segmentation/measurement on one FOV dict from
+    """Run oracle + system segmentation/measurement on one FOV dict from
     synthetic.make_fov. Returns (metrics, bundle) where bundle carries the
     per-engine segmentations and normalized spectra for classification
     parity."""
@@ -77,60 +77,60 @@ def segmentation_parity(fov: dict, pipeline: str, max_cells: int = 512):
     avg_ref = rp.measure_avgint(seg_ref, reg_ref)
     norm_ref = avg_ref / np.maximum(avg_ref.max(axis=1, keepdims=True), 1e-12)
 
-    seg_tpu = np.asarray(res.segmentation)
-    n_tpu = int(res.n_cells)
-    avg_tpu, norm_tpu = measure.measure_fov(
-        res.segmentation, res.registered, n_tpu, max_cells)
+    seg_sys = np.asarray(res.segmentation)
+    n_sys = int(res.n_cells)
+    avg_sys, norm_sys = measure.measure_fov(
+        res.segmentation, res.registered, n_sys, max_cells)
 
     ref_ids = np.unique(seg_ref)
     ref_ids = ref_ids[ref_ids > 0]
     n_ref = len(ref_ids)
-    pairs, unmatched = match_cells(seg_ref, seg_tpu)
+    pairs, unmatched = match_cells(seg_ref, seg_sys)
     ious = [p[2] for p in pairs]
 
     # avgint agreement on matched cells: cosine of normalized spectra.
-    # Oracle avgint rows follow increasing reference label; TPU rows are
+    # Oracle avgint rows follow increasing reference label; system rows are
     # label-1 (sequential-label contract).
     ref_row = {int(lab): i for i, lab in enumerate(ref_ids)}
     cos = []
     for a, b, _ in pairs:
         u = norm_ref[ref_row[a]]
-        v = norm_tpu[b - 1]
+        v = norm_sys[b - 1]
         cos.append(float(
             u @ v / (np.linalg.norm(u) * np.linalg.norm(v) + 1e-30)))
     # Doublet-merge sentinel (ADVICE r04: the fused ecoli engine's
     # single-cleanup erosion seeding can diverge from the exact per-round
     # loop on pathological touching pairs): ref cells whose best-overlap
-    # TPU label is SHARED with another ref cell — a regression in the
+    # system label is SHARED with another ref cell — a regression in the
     # touching-pair split shows up here before it dents the 0.5% budget.
     b_ids = [b for _, b, _ in pairs]
     merged = len(b_ids) - len(set(b_ids))
     metrics = {
         "n_cells_ref": n_ref,
-        "n_cells_tpu": n_tpu,
+        "n_cells_sys": n_sys,
         "matched": len(pairs),
         "unmatched_ref": unmatched,
-        "ref_pairs_merged_in_tpu": merged,
+        "ref_pairs_merged_in_sys": merged,
         "mean_iou": float(np.mean(ious)) if ious else 0.0,
         "min_iou": float(np.min(ious)) if ious else 0.0,
         "mean_spectrum_cos": float(np.mean(cos)) if cos else 0.0,
         "min_spectrum_cos": float(np.min(cos)) if cos else 0.0,
     }
     bundle = {
-        "seg_ref": seg_ref, "seg_tpu": seg_tpu,
-        "norm_ref": norm_ref, "norm_tpu": np.asarray(norm_tpu),
+        "seg_ref": seg_ref, "seg_sys": seg_sys,
+        "norm_ref": norm_ref, "norm_sys": np.asarray(norm_sys),
         "pairs": pairs, "ref_row": ref_row,
     }
     return metrics, bundle
 
 
-class TpuOracleTwin:
-    """The framework's TPU inference stack scored on the ORACLE's fitted
+class SysOracleTwin:
+    """The framework's inference stack scored on the ORACLE's fitted
     artifacts: the oracle's sklearn check-SVCs re-expressed as JaxRbfSvc
     GEMMs, exact kNN over the oracle's own training matrix under the exact
     gated metric (models/metrics._ref_gated_cosine_matrix), majority vote.
 
-    This isolates what classifier parity can actually certify: that the TPU
+    This isolates what classifier parity can actually certify: that the system
     scoring path reproduces the oracle's decisions on IDENTICAL artifacts.
     (Two independently trained classifiers disagree on crosstalk-corrupted
     cells for sampling reasons no inference engine controls — measured: all
@@ -188,65 +188,65 @@ class TpuOracleTwin:
 
 
 def classification_parity(bundle: dict, fov: dict, barcodes,
-                          ref_clf, tpu_clf, twin: "TpuOracleTwin" = None,
+                          ref_clf, sys_clf, twin: "SysOracleTwin" = None,
                           collect_disagreements: bool = False):
-    """Barcode agreement between the oracle classifier and the TPU
+    """Barcode agreement between the oracle classifier and the system
     classifier, plus each side's accuracy vs planted truth.
 
     Two comparisons:
       * same-spectra: both classifiers on the oracle-measured spectra —
         isolates classifier parity;
-      * end-to-end: oracle(seg+measure+classify) vs tpu(seg+measure+
+      * end-to-end: oracle(seg+measure+classify) vs system(seg+measure+
         classify) on cells matched across the two segmentations.
 
-    When ``twin`` is given, the agreement columns score the TPU inference
-    stack on the oracle's own fitted artifacts (TpuOracleTwin) — the
+    When ``twin`` is given, the agreement columns score the system inference
+    stack on the oracle's own fitted artifacts (SysOracleTwin) — the
     comparison the 0.5% parity budget can meaningfully bound — while the
-    truth-accuracy columns keep scoring the production ``tpu_clf``.
+    truth-accuracy columns keep scoring the production ``sys_clf``.
     """
     import jax.numpy as jnp
 
     norm_ref = bundle["norm_ref"]
-    norm_tpu = bundle["norm_tpu"]
+    norm_sys = bundle["norm_sys"]
 
     calls_ref = ref_clf.predict(norm_ref)
     if twin is not None:
-        calls_tpu_on_ref = twin.predict(norm_ref)
+        calls_sys_on_ref = twin.predict(norm_ref)
     else:
-        calls_tpu_on_ref, _, _, _ = tpu_clf.classify(jnp.asarray(norm_ref))
-    calls_tpu_on_ref = np.asarray(
-        [str(c).split("_")[0] for c in calls_tpu_on_ref])
+        calls_sys_on_ref, _, _, _ = sys_clf.classify(jnp.asarray(norm_ref))
+    calls_sys_on_ref = np.asarray(
+        [str(c).split("_")[0] for c in calls_sys_on_ref])
     calls_ref_clean = np.asarray([str(c).split("_")[0] for c in calls_ref])
     same_spectra_agree = float(
-        np.mean(calls_ref_clean == calls_tpu_on_ref)) if len(norm_ref) else 1.0
+        np.mean(calls_ref_clean == calls_sys_on_ref)) if len(norm_ref) else 1.0
 
-    calls_tpu, _, _, _ = tpu_clf.classify(jnp.asarray(norm_tpu))
-    calls_tpu = np.asarray([c.split("_")[0] for c in calls_tpu])
-    calls_agree_tpu = calls_tpu if twin is None else np.asarray(
-        [str(c).split("_")[0] for c in twin.predict(norm_tpu)])
+    calls_sys, _, _, _ = sys_clf.classify(jnp.asarray(norm_sys))
+    calls_sys = np.asarray([c.split("_")[0] for c in calls_sys])
+    calls_agree_sys = calls_sys if twin is None else np.asarray(
+        [str(c).split("_")[0] for c in twin.predict(norm_sys)])
 
     # Truth accuracy per engine.
     nbits = len(calls_ref_clean[0]) if len(calls_ref_clean) else 0
     truth_ref = truth_code_per_label(
         bundle["seg_ref"], fov["truth_labels"], barcodes)
-    truth_tpu = truth_code_per_label(
-        bundle["seg_tpu"], fov["truth_labels"], barcodes)
+    truth_sys = truth_code_per_label(
+        bundle["seg_sys"], fov["truth_labels"], barcodes)
     fmt = "0{}b".format(nbits)
 
     ref_ids = sorted(truth_ref)
     acc_ref = float(np.mean([
         calls_ref_clean[bundle["ref_row"][lab]] == format(truth_ref[lab], fmt)
         for lab in ref_ids])) if ref_ids else 0.0
-    tpu_ids = sorted(truth_tpu)
-    acc_tpu = float(np.mean([
-        calls_tpu[lab - 1] == format(truth_tpu[lab], fmt)
-        for lab in tpu_ids])) if tpu_ids else 0.0
+    sys_ids = sorted(truth_sys)
+    acc_sys = float(np.mean([
+        calls_sys[lab - 1] == format(truth_sys[lab], fmt)
+        for lab in sys_ids])) if sys_ids else 0.0
 
     # End-to-end agreement on matched cells.
     agree = []
     for a, b, _ in bundle["pairs"]:
         agree.append(
-            calls_ref_clean[bundle["ref_row"][a]] == calls_agree_tpu[b - 1])
+            calls_ref_clean[bundle["ref_row"][a]] == calls_agree_sys[b - 1])
 
     # Per-disagreement forensics (VERDICT r04 weak #6: the habit of not
     # logging the few disagreeing cells is how the r03 10-cell mystery
@@ -259,33 +259,33 @@ def classification_parity(bundle: dict, fov: dict, barcodes,
         if bad:
             rows_ref = np.stack([norm_ref[bundle["ref_row"][a]]
                                  for a, _, _ in bad])
-            rows_tpu = np.stack([norm_tpu[b - 1] for _, b, _ in bad])
+            rows_sys = np.stack([norm_sys[b - 1] for _, b, _ in bad])
             _, votes_ref = twin.predict(rows_ref, return_votes=True)
-            _, votes_tpu = twin.predict(rows_tpu, return_votes=True)
+            _, votes_sys = twin.predict(rows_sys, return_votes=True)
             for j, (a, b, iou) in enumerate(bad):
-                u, v = rows_ref[j], rows_tpu[j]
+                u, v = rows_ref[j], rows_sys[j]
                 cosv = float(u @ v / (np.linalg.norm(u) * np.linalg.norm(v)
                                       + 1e-30))
                 disagreements.append({
-                    "label_ref": int(a), "label_tpu": int(b),
+                    "label_ref": int(a), "label_sys": int(b),
                     "iou": round(float(iou), 4),
                     "spectrum_cos": round(cosv, 6),
                     "call_ref": str(calls_ref_clean[bundle["ref_row"][a]]),
-                    "call_tpu": str(calls_agree_tpu[b - 1]),
+                    "call_sys": str(calls_agree_sys[b - 1]),
                     "truth": format(truth_ref.get(int(a), 0), fmt),
                     "knn_votes_on_ref_spectrum": votes_ref[j],
-                    "knn_votes_on_tpu_spectrum": votes_tpu[j],
+                    "knn_votes_on_sys_spectrum": votes_sys[j],
                 })
     return {
         "disagreements": disagreements,
         "same_spectra_agreement": same_spectra_agree,
         "same_spectra_n_agree": int(np.sum(
-            calls_ref_clean == calls_tpu_on_ref)) if len(norm_ref) else 0,
+            calls_ref_clean == calls_sys_on_ref)) if len(norm_ref) else 0,
         "same_spectra_n": int(len(norm_ref)),
         "e2e_agreement": float(np.mean(agree)) if agree else 0.0,
         "e2e_n_agree": int(np.sum(agree)),
         "e2e_n": len(agree),
         "n_compared": len(agree),
         "ref_truth_accuracy": acc_ref,
-        "tpu_truth_accuracy": acc_tpu,
+        "sys_truth_accuracy": acc_sys,
     }

@@ -303,3 +303,24 @@ def test_cli_warmup_precompiles_engines(tmp_path, monkeypatch):
     compiled = [m for m in handler.messages
                 if "segment_ecoli_device" in m and "compil" in m.lower()]
     assert not compiled, compiled
+
+
+def test_bench_exits_nonzero_when_a_config_fails(monkeypatch):
+    """bench.py's orchestrator reports a failed config through its exit
+    code instead of swallowing it."""
+    import importlib.util
+    import os as _os
+    spec = importlib.util.spec_from_file_location(
+        "bench", _os.path.join(_os.path.dirname(__file__), "..", "bench.py"))
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+
+    results = {"headline": {"value": 1.0, "extra": {}},
+               "10b": {"error": "10b exited 1: boom"},
+               "3d": {"cells_found": 1}}
+    monkeypatch.setattr(bench, "_run_config_subprocess",
+                        lambda config, timeout_s=1500: results[config])
+    monkeypatch.setenv("BENCH_CLI", "0")
+    assert bench.orchestrate() == 1
+    results["10b"] = {"ms_per_fov": 1.0}
+    assert bench.orchestrate() == 0

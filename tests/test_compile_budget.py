@@ -5,7 +5,7 @@ this round cost 30+ s of per-process compile each (a Python-unrolled
 39-step erosion chain, an unbounded flood-doubling tree). Wall-clock
 compile time is machine-dependent, but the stablehlo op count of a lowered
 program is deterministic — pin it with ~35% headroom so an accidental
-unroll/doubling blowup fails CI instead of landing on the TPU critical
+unroll/doubling blowup fails CI instead of landing on the device's critical
 path. Lowering from ShapeDtypeStructs allocates nothing and takes seconds.
 """
 

@@ -1,7 +1,7 @@
-"""Multi-host (DCN) dryrun: two real OS processes under
+"""Multi-host dryrun: two real OS processes under
 jax.distributed.initialize on the CPU backend, exercising the global mesh,
-a cross-process psum (the DCN collective path), and the host-sharded FOV
-fan-out. Real multi-host TPU hardware is unavailable here; this is the
+a cross-process psum (the cross-host collective path), and the host-sharded FOV
+fan-out. Real multi-host hardware is unavailable here; this is the
 two-simulated-processes equivalent (SURVEY.md §4 fake-backend strategy)."""
 
 import json
@@ -34,7 +34,7 @@ assert len(jax.devices()) == 4          # 2 procs x 2 local devices
 mesh = distributed.global_mesh(fov=4, tile=1)
 assert mesh.shape == {"fov": 4, "tile": 1}
 
-# Cross-process psum over the global 'fov' axis (rides DCN between procs).
+# Cross-process psum over the global 'fov' axis (crosses processes).
 def local_sum(x):
     return jax.lax.psum(x, "fov")
 

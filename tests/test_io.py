@@ -394,3 +394,44 @@ def test_identification_png_scale_bar(tmp_path, rng):
     assert outputs._nice_bar_um(200 * 0.0675) == 2.0
     assert outputs._nice_bar_um(2000 * 0.0675) == 20.0
     assert outputs._nice_bar_um(0.0) == 1.0
+
+
+def test_write_png_roundtrip(tmp_path):
+    """The numpy+zlib PNG writer (used where matplotlib is absent) writes
+    a standard 8-bit RGB PNG."""
+    from PIL import Image
+
+    rgb = np.zeros((17, 23, 3), np.float32)
+    rgb[2:5, 3:9] = (1.0, 0.5, 0.0)
+    rgb[10:, :4] = (0.2, 0.4, 1.0)
+    path = str(tmp_path / "x.png")
+    outputs.write_png(path, rgb)
+    back = np.asarray(Image.open(path).convert("RGB"))
+    np.testing.assert_array_equal(
+        back, (np.clip(rgb, 0, 1) * 255 + 0.5).astype(np.uint8))
+
+
+def test_seg_png_without_matplotlib(tmp_path, monkeypatch):
+    """save_segmentation still writes _seg.png (with the scale bar drawn
+    into the pixels) when matplotlib cannot be imported."""
+    import builtins
+
+    from PIL import Image
+
+    real_import = builtins.__import__
+
+    def no_mpl(name, *a, **k):
+        if name.split(".")[0] == "matplotlib":
+            raise ImportError(name)
+        return real_import(name, *a, **k)
+
+    monkeypatch.setattr(builtins, "__import__", no_mpl)
+    seg = np.zeros((200, 200), np.int32)
+    seg[20:60, 20:80] = 1
+    sample = str(tmp_path / "fov")
+    outputs.save_segmentation(seg, sample, pixel_um=0.0675)
+    img = np.asarray(Image.open(sample + "_seg.png").convert("RGB"))
+    assert img.shape == (200, 200, 3)
+    corner = img[int(200 * 0.85):, int(200 * 0.55):]
+    assert (corner == 255).all(axis=-1).sum() > 50
+    assert img[40, 50].any() and not img[5, 5].any()

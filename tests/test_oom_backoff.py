@@ -9,7 +9,7 @@ from hiprfish_tpu.utils import oom
 
 class FakeOom(RuntimeError):
     def __str__(self):
-        return "RESOURCE_EXHAUSTED: TPU backend error (ResourceExhausted)."
+        return "RESOURCE_EXHAUSTED: Out of memory while trying to allocate 1024 bytes."
 
 
 def test_backoff_walks_ladder_until_fit():

@@ -3,7 +3,7 @@
 Runs the reference oracle (tests/ref_oracle: line-for-line transcriptions of
 the reference's segmentation/measurement/training/classification using the
 same sklearn calls, skimage-semantics morphology and the pyx-derived
-stencil) and the TPU pipelines on shared synthetic FOVs, and asserts:
+stencil) and the system's pipelines on shared synthetic FOVs, and asserts:
 
 * the LP stencil and LP-CV enhancement match the pyx-derived oracle;
 * segmentations match cell-for-cell (IoU) and spectrum-for-spectrum;
@@ -73,7 +73,7 @@ def test_segmentation_parity_multispecies():
         cell_axes=(7.0, 12.0))
     m, _ = harness.segmentation_parity(fov, "multispecies")
     assert m["n_cells_ref"] == len(CODES_7B)
-    assert m["n_cells_tpu"] == m["n_cells_ref"]
+    assert m["n_cells_sys"] == m["n_cells_ref"]
     assert m["matched"] == m["n_cells_ref"] and m["unmatched_ref"] == 0
     assert m["mean_iou"] > 0.95, m
     assert m["min_spectrum_cos"] > 0.999, m
@@ -87,7 +87,7 @@ def test_segmentation_parity_ecoli():
         cell_axes=(9.0, 14.0))
     m, _ = harness.segmentation_parity(fov, "ecoli")
     assert m["n_cells_ref"] == len(CODES_10B)
-    assert m["n_cells_tpu"] == m["n_cells_ref"]
+    assert m["n_cells_sys"] == m["n_cells_ref"]
     assert m["matched"] == m["n_cells_ref"] and m["unmatched_ref"] == 0
     assert m["mean_iou"] > 0.9, m
     assert m["min_spectrum_cos"] > 0.999, m
@@ -118,7 +118,7 @@ def test_classifier_parity_7b(tmp_path, rng):
     synthetic.write_reference_folder(TEN_BIT, str(tmp_path), encs10,
                                      cells_per_code=40, seed=7)
     ref_clf = rc.train_ref_7b(str(tmp_path), spc=60, seed=1)
-    tpu_clf = mtrain.train_excitation_adjusted_biofilm_7b(
+    sys_clf = mtrain.train_excitation_adjusted_biofilm_7b(
         str(tmp_path), spc=60, seed=1, save=False)
 
     # Vectorized metric must equal the literal scalar transcription.
@@ -134,13 +134,13 @@ def test_classifier_parity_7b(tmp_path, rng):
         SEVEN_BIT, [e for e in CODES_7B] + [2, 4, 8, 16], rng)
     calls_ref = np.array([str(c).split("_")[0]
                           for c in ref_clf.predict(qcells)])
-    calls_tpu, _, _, _ = tpu_clf.classify(jnp.asarray(qcells))
-    calls_tpu = np.array([c.split("_")[0] for c in calls_tpu])
-    agreement = float(np.mean(calls_ref == calls_tpu))
-    acc_tpu = float(np.mean(calls_tpu == qcodes7))
+    calls_sys, _, _, _ = sys_clf.classify(jnp.asarray(qcells))
+    calls_sys = np.array([c.split("_")[0] for c in calls_sys])
+    agreement = float(np.mean(calls_ref == calls_sys))
+    acc_sys = float(np.mean(calls_sys == qcodes7))
     acc_ref = float(np.mean(calls_ref == qcodes7))
-    assert agreement >= 0.995, (agreement, acc_ref, acc_tpu)
-    assert acc_tpu >= acc_ref - 0.005  # never worse than the reference stack
+    assert agreement >= 0.995, (agreement, acc_ref, acc_sys)
+    assert acc_sys >= acc_ref - 0.005  # never worse than the reference stack
 
 
 @pytest.mark.slow
@@ -151,30 +151,30 @@ def test_classifier_parity_10b(tmp_path, rng):
     synthetic.write_reference_folder(TEN_BIT, str(tmp_path), REF_ENCS_10B,
                                      cells_per_code=40, seed=7)
     ref_clf = rc.train_ref_10b(str(tmp_path), spc=60, seed=1)
-    tpu_clf = mtrain.train_excitation_adjusted_violet_derivative(
+    sys_clf = mtrain.train_excitation_adjusted_violet_derivative(
         str(tmp_path), spc=60, seed=1, save=False)
 
     qcells, qcodes = _query_cells(TEN_BIT, REF_ENCS_10B, rng)
     calls_ref = np.array([str(c).split("_")[0]
                           for c in ref_clf.predict(qcells)])
-    calls_tpu, _, _, _ = tpu_clf.classify(jnp.asarray(qcells))
-    calls_tpu = np.array([c.split("_")[0] for c in calls_tpu])
-    agreement = float(np.mean(calls_ref == calls_tpu))
-    acc_tpu = float(np.mean(calls_tpu == qcodes))
+    calls_sys, _, _, _ = sys_clf.classify(jnp.asarray(qcells))
+    calls_sys = np.array([c.split("_")[0] for c in calls_sys])
+    agreement = float(np.mean(calls_ref == calls_sys))
+    acc_sys = float(np.mean(calls_sys == qcodes))
     acc_ref = float(np.mean(calls_ref == qcodes))
     # 0.5% budget on disagreements that are actual regressions: a cell where
-    # the reference errs but the TPU call matches the planted truth is a
+    # the reference errs but the system call matches the planted truth is a
     # strict improvement, not a parity break (high-temperature voting beats
     # the reference oracle on crosstalk-adjacent codes).
-    regressions = float(np.mean((calls_ref != calls_tpu)
-                                & (calls_tpu != qcodes)))
-    assert regressions <= 0.005, (agreement, acc_ref, acc_tpu)
-    assert acc_tpu >= acc_ref - 0.005
+    regressions = float(np.mean((calls_ref != calls_sys)
+                                & (calls_sys != qcodes)))
+    assert regressions <= 0.005, (agreement, acc_ref, acc_sys)
+    assert acc_sys >= acc_ref - 0.005
 
 
 @pytest.mark.slow
 def test_end_to_end_barcode_parity_multispecies(tmp_path):
-    """Full-pipeline parity: oracle seg+measure+classify vs TPU
+    """Full-pipeline parity: oracle seg+measure+classify vs system
     seg+measure+classify on one shared FOV."""
     from hiprfish_tpu.models import train as mtrain
 
@@ -182,7 +182,7 @@ def test_end_to_end_barcode_parity_multispecies(tmp_path):
     synthetic.write_reference_folder(TEN_BIT, str(tmp_path), encs10,
                                      cells_per_code=40, seed=7)
     ref_clf = rc.train_ref_7b(str(tmp_path), spc=60, seed=1)
-    tpu_clf = mtrain.train_excitation_adjusted_biofilm_7b(
+    sys_clf = mtrain.train_excitation_adjusted_biofilm_7b(
         str(tmp_path), spc=60, seed=1, save=False)
 
     fov = synthetic.make_fov(
@@ -190,10 +190,10 @@ def test_end_to_end_barcode_parity_multispecies(tmp_path):
         laser_shifts=[(0, 0), (1, 2), (-1, 0), (2, -2)],
         cell_axes=(7.0, 12.0))
     _, bundle = harness.segmentation_parity(fov, "multispecies")
-    c = harness.classification_parity(bundle, fov, CODES_7B, ref_clf, tpu_clf)
+    c = harness.classification_parity(bundle, fov, CODES_7B, ref_clf, sys_clf)
     assert c["same_spectra_agreement"] >= 0.995, c
     assert c["e2e_agreement"] >= 0.995, c
-    assert c["tpu_truth_accuracy"] >= c["ref_truth_accuracy"] - 0.005, c
+    assert c["sys_truth_accuracy"] >= c["ref_truth_accuracy"] - 0.005, c
 def test_erosion_seeding_splits_touching_doublet():
     """Regression for the round-3 parity defect (DIAG_PARITY_10B.json): a
     touching cell pair whose eroded lobes stay bridged by diagonal-only

@@ -156,3 +156,35 @@ def test_loader_records_numba_stub_metric_name(tmp_path):
     model = umap_infer.load_umap_pickle(str(path))
     assert model.metric == "channel_cosine_intensity_7b_v2"
     assert umap_infer.resolve_metric_fn(model, None) is not None
+
+
+def test_knn_top_k_calls_match_approx_max_k(monkeypatch):
+    """The kNN vote selects neighbours with exact lax.top_k; the
+    approx_max_k it replaced must give identical calls."""
+    import jax
+    import jax.numpy as jnp
+
+    from hiprfish_tpu.models import classifier as C
+
+    rng = np.random.RandomState(0)
+    blocks = ((0, 8), (8, 14), (14, 20))
+    train = rng.rand(300, 23).astype(np.float32)
+    train[:, 20:] = rng.randint(0, 2, (300, 3))
+    labels = rng.randint(0, 12, 300).astype(np.int32)
+    q = train[rng.randint(0, 300, 64)] + 0.01 * rng.randn(64, 23).astype(
+        np.float32)
+    q[:, 20:] = np.round(q[:, 20:])
+    args = (jnp.asarray(q), jnp.asarray(train), jnp.asarray(labels), 12,
+            blocks, (20, 23), 7, 30.0)
+    exact = C._knn_predict(*args)
+
+    def approx(x, k):
+        return jax.lax.approx_max_k(x, k, recall_target=0.999)
+
+    monkeypatch.setattr(jax.lax, "top_k", approx)
+    approx_fn = jax.jit(C._knn_predict.__wrapped__,
+                        static_argnums=(3, 4, 5, 6, 7))
+    got = approx_fn(*args)
+    np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(exact[0]))
+    np.testing.assert_allclose(np.asarray(got[1]), np.asarray(exact[1]),
+                               rtol=1e-6)

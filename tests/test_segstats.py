@@ -171,67 +171,3 @@ def test_image_mask_stats_match_two_pass(rng):
                                np.asarray(st.mask_counts), atol=1e-3)
     np.testing.assert_allclose(np.asarray(tiny.sums), np.asarray(st.sums),
                                rtol=1e-4, atol=1e-3)
-
-
-def test_pallas_stats_match_exact():
-    """TPU-only: the Pallas banded kernels (ops/segstats_pallas.py) must
-    reproduce the exact scatter path bit-for-bit on counts/hist and to
-    hi/lo-split tolerance on f32 sums. Skips on the CPU CI mesh (the XLA
-    windowed path, covered above, is used there)."""
-    import jax
-
-    if jax.default_backend() in ("cpu", "gpu"):
-        pytest.skip("pallas segstats kernels are TPU-only")
-    rng = np.random.RandomState(0)
-    H, W, C = 400, 520, 13
-    lab_np = np.zeros((H, W), np.int32)
-    k = 1
-    for i in range(8):
-        for j in range(10):
-            y, x = 10 + i * 48, 8 + j * 50
-            lab_np[y:y + 20, x:x + 12] = k
-            k += 1
-    img = rng.rand(H, W, C).astype(np.float32)
-    aux = rng.randint(0, 7, (H, W)).astype(np.int32)
-    mask = (rng.rand(H, W) > 0.5).astype(np.float32)
-    labj = jnp.asarray(lab_np)
-    NS = 256
-    exact = segstats._label_stats_exact(labj, jnp.asarray(img),
-                                        jnp.asarray(aux), jnp.asarray(mask),
-                                        NS, 7, True)
-    fast = segstats.label_stats(labj, jnp.asarray(img), NS, width=64,
-                                aux=jnp.asarray(aux), aux_classes=7,
-                                moments=True, image_mask=jnp.asarray(mask))
-    assert not bool(fast.spill)
-    np.testing.assert_allclose(np.asarray(fast.counts),
-                               np.asarray(exact.counts), atol=1e-3)
-    np.testing.assert_allclose(np.asarray(fast.border_hits),
-                               np.asarray(exact.border_hits), atol=1e-3)
-    np.testing.assert_allclose(np.asarray(fast.sums), np.asarray(exact.sums),
-                               rtol=2e-4, atol=1e-2)
-    np.testing.assert_allclose(np.asarray(fast.moments),
-                               np.asarray(exact.moments), rtol=2e-4)
-    np.testing.assert_allclose(np.asarray(fast.aux_hist),
-                               np.asarray(exact.aux_hist), atol=1e-3)
-    np.testing.assert_allclose(np.asarray(fast.mask_counts),
-                               np.asarray(exact.mask_counts), atol=1e-3)
-
-    tbl_np = rng.randint(0, 1000, NS).astype(np.float32)
-    tbl_np[0] = 0.0
-    got = segstats.label_lookup(labj, jnp.asarray(tbl_np), width=64,
-                                out_dtype=jnp.int32)
-    np.testing.assert_array_equal(np.asarray(got),
-                                  tbl_np[np.clip(lab_np, 0, NS - 1)]
-                                  .astype(np.int32))
-
-    # window spill (two far-apart ids in one band) must flip the flag and
-    # fall back to the exact path
-    lab2 = lab_np.copy()
-    lab2[12:28, 500:512] = 250
-    f3 = segstats.label_stats(jnp.asarray(lab2), jnp.asarray(img), NS,
-                              width=64)
-    e3 = segstats._label_stats_exact(jnp.asarray(lab2), jnp.asarray(img),
-                                     None, None, NS, 0, False)
-    assert bool(f3.spill)
-    np.testing.assert_allclose(np.asarray(f3.counts), np.asarray(e3.counts),
-                               atol=1e-3)

@@ -1,7 +1,7 @@
 """Diagnose the ecoli_10b end-to-end parity disagreements, per cell.
 
 Round-3 parity (PARITY_r03.json) left 10/2167 ecoli cells where the
-TPU-stack barcode (twin on TPU-measured spectra) disagrees with the
+system-stack barcode (twin on system-measured spectra) disagrees with the
 oracle's end-to-end call, while same-spectra agreement is 100% — so every
 disagreement traces to a segmentation/measurement difference. This tool
 re-runs the ecoli_10b family sweep and, for EVERY disagreeing matched
@@ -94,7 +94,7 @@ def main():
     synthetic.write_reference_folder(TEN_BIT, tmp10, encs_ref10,
                                      cells_per_code=40, seed=7)
     ref10 = rc.train_ref_10b(tmp10, spc=60, seed=1)
-    tpu10 = mtrain.train_excitation_adjusted_violet_derivative(
+    sys10 = mtrain.train_excitation_adjusted_violet_derivative(
         tmp10, spc=60, seed=1, save=False)
     print(f"# classifiers built ({time.time()-t0:.0f}s)", file=sys.stderr,
           flush=True)
@@ -102,7 +102,7 @@ def main():
     codes = [mp.CODES_10B[i % len(mp.CODES_10B)]
              for i in range(mp.GRID * mp.GRID)]
     shifts = [(0, 0), (2, -1), (0, 3), (-2, 0), (1, 1)]
-    twin = harness.TpuOracleTwin(ref10)
+    twin = harness.SysOracleTwin(ref10)
     disagreements = []
     totals = {"n": 0, "agree": 0}
     for i in range(mp.N_FOVS):
@@ -110,7 +110,7 @@ def main():
                            spacing=31.0)
         m, bundle = harness.segmentation_parity(fov, "ecoli",
                                                 max_cells=mp.MAX_CELLS)
-        c = harness.classification_parity(bundle, fov, codes, ref10, tpu10,
+        c = harness.classification_parity(bundle, fov, codes, ref10, sys10,
                                           twin=twin)
         totals["n"] += c["e2e_n"]
         totals["agree"] += c["e2e_n_agree"]
@@ -120,40 +120,40 @@ def main():
         if c["e2e_n_agree"] == c["e2e_n"]:
             continue
 
-        norm_ref, norm_tpu = bundle["norm_ref"], bundle["norm_tpu"]
+        norm_ref, norm_sys = bundle["norm_ref"], bundle["norm_sys"]
         calls_ref = np.asarray(
             [str(x).split("_")[0] for x in ref10.predict(norm_ref)])
-        calls_twin_tpu, votes_tpu, margins_tpu, _ = twin_votes(twin, norm_tpu)
+        calls_twin_sys, votes_sys, margins_sys, _ = twin_votes(twin, norm_sys)
         calls_twin_ref, votes_ref, margins_ref, _ = twin_votes(twin, norm_ref)
         truth_ref = harness.truth_code_per_label(
             bundle["seg_ref"], fov["truth_labels"], codes)
-        truth_tpu = harness.truth_code_per_label(
-            bundle["seg_tpu"], fov["truth_labels"], codes)
+        truth_sys = harness.truth_code_per_label(
+            bundle["seg_sys"], fov["truth_labels"], codes)
         area_ref = np.bincount(bundle["seg_ref"].ravel())
-        area_tpu = np.bincount(bundle["seg_tpu"].ravel())
+        area_sys = np.bincount(bundle["seg_sys"].ravel())
         for a, b, iou in bundle["pairs"]:
             ra = bundle["ref_row"][a]
-            if calls_ref[ra] == str(calls_twin_tpu[b - 1]).split("_")[0]:
+            if calls_ref[ra] == str(calls_twin_sys[b - 1]).split("_")[0]:
                 continue
-            u, v = norm_ref[ra], norm_tpu[b - 1]
+            u, v = norm_ref[ra], norm_sys[b - 1]
             cos = float(u @ v / (np.linalg.norm(u) * np.linalg.norm(v)
                                  + 1e-30))
             disagreements.append({
                 "fov": i,
                 "scene": ("nominal" if i < 3
                           else "high_noise" if i == 3 else "misregistered"),
-                "label_ref": int(a), "label_tpu": int(b),
+                "label_ref": int(a), "label_sys": int(b),
                 "iou": round(float(iou), 4),
                 "spectrum_cos": round(cos, 6),
-                "area_ref": int(area_ref[a]), "area_tpu": int(area_tpu[b]),
+                "area_ref": int(area_ref[a]), "area_sys": int(area_sys[b]),
                 "truth": format(truth_ref.get(int(a), -1), "010b"),
-                "truth_tpu_side": format(truth_tpu.get(int(b), -1), "010b"),
+                "truth_sys_side": format(truth_sys.get(int(b), -1), "010b"),
                 "call_oracle": str(calls_ref[ra]),
-                "call_twin_on_tpu_spectrum": str(calls_twin_tpu[b - 1]),
+                "call_twin_on_sys_spectrum": str(calls_twin_sys[b - 1]),
                 "call_twin_on_ref_spectrum": str(calls_twin_ref[ra]),
-                "votes_on_tpu_spectrum": votes_tpu[b - 1],
+                "votes_on_sys_spectrum": votes_sys[b - 1],
                 "votes_on_ref_spectrum": votes_ref[ra],
-                "margin_on_tpu_spectrum": margins_tpu[b - 1],
+                "margin_on_sys_spectrum": margins_sys[b - 1],
                 "margin_on_ref_spectrum": margins_ref[ra],
             })
 

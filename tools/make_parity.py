@@ -1,6 +1,6 @@
 """Generate PARITY_r0N.json: the reference-parity evidence file.
 
-Runs the reference oracle (tests/ref_oracle) and the TPU pipelines on a
+Runs the reference oracle (tests/ref_oracle) and the system's pipelines on a
 sweep of shared synthetic FOVs at PRODUCTION scale — per family, 5 FOVs of
 2000x2000 px with ~441 densely packed (touching) cells each, including one
 high-noise scene and one heavily mis-registered scene — and records
@@ -154,15 +154,15 @@ def fov_scene(layout, codes, i, shifts, cell_axes, spacing,
     return fov
 
 
-def run_family(name, layout, base_codes, shifts, cell_axes, ref_clf, tpu_clf,
+def run_family(name, layout, base_codes, shifts, cell_axes, ref_clf, sys_clf,
                spacing, misreg=NEAR_CLAMP, misreg_pedestal: float = 0.0):
     codes = [base_codes[i % len(base_codes)] for i in range(GRID * GRID)]
-    # Agreement scores the TPU inference stack on the oracle's own fitted
-    # artifacts (harness.TpuOracleTwin) — two independently TRAINED
+    # Agreement scores the system inference stack on the oracle's own fitted
+    # artifacts (harness.SysOracleTwin) — two independently TRAINED
     # classifiers disagree on crosstalk-corrupted cells for sampling
     # reasons no inference engine controls; truth-accuracy columns still
     # score the production classifier.
-    twin = harness.TpuOracleTwin(ref_clf)
+    twin = harness.SysOracleTwin(ref_clf)
     seg_metrics, clf_metrics, ious_all = [], [], []
     per_fov, disagreements = [], []
     agree_e2e = agree_ss = n_e2e = n_ss = 0
@@ -174,7 +174,7 @@ def run_family(name, layout, base_codes, shifts, cell_axes, ref_clf, tpu_clf,
             fov, "ecoli" if name == "ecoli" else "multispecies",
             max_cells=MAX_CELLS)
         c = harness.classification_parity(bundle, fov, codes,
-                                          ref_clf, tpu_clf, twin=twin,
+                                          ref_clf, sys_clf, twin=twin,
                                           collect_disagreements=True)
         print(f"[{name} fov {i}] {m['matched']}/{m['n_cells_ref']} matched, "
               f"iou={m['mean_iou']:.3f}, same-spectra "
@@ -185,15 +185,15 @@ def run_family(name, layout, base_codes, shifts, cell_axes, ref_clf, tpu_clf,
                  else "misregistered" if i == 4 else "nominal")
         per_fov.append({
             "fov": i, "scene": scene,
-            "n_cells_ref": m["n_cells_ref"], "n_cells_tpu": m["n_cells_tpu"],
+            "n_cells_ref": m["n_cells_ref"], "n_cells_sys": m["n_cells_sys"],
             "matched": m["matched"],
-            "merged_in_tpu": m["ref_pairs_merged_in_tpu"],
+            "merged_in_sys": m["ref_pairs_merged_in_sys"],
             "mean_iou": round(m["mean_iou"], 4),
             "e2e_agree": c["e2e_n_agree"], "e2e_n": c["e2e_n"],
             "same_spectra_agree": c["same_spectra_n_agree"],
             "same_spectra_n": c["same_spectra_n"],
             "ref_truth_accuracy": round(c["ref_truth_accuracy"], 4),
-            "tpu_truth_accuracy": round(c["tpu_truth_accuracy"], 4),
+            "sys_truth_accuracy": round(c["sys_truth_accuracy"], 4),
         })
         for d in c["disagreements"]:
             disagreements.append(dict(d, fov=i, scene=scene))
@@ -214,7 +214,7 @@ def run_family(name, layout, base_codes, shifts, cell_axes, ref_clf, tpu_clf,
                    "high_noise": [3] if N_FOVS > 3 else [],
                    "misregistered": [4] if N_FOVS > 4 else []},
         "total_cells_ref": total_cells,
-        "total_cells_tpu": int(sum(m["n_cells_tpu"] for m in seg_metrics)),
+        "total_cells_sys": int(sum(m["n_cells_sys"] for m in seg_metrics)),
         "matched_cells": int(sum(m["matched"] for m in seg_metrics)),
         "per_fov": per_fov,
         "disagreements": disagreements,
@@ -235,15 +235,15 @@ def run_family(name, layout, base_codes, shifts, cell_axes, ref_clf, tpu_clf,
             "rate": float(agree_e2e / max(n_e2e, 1)),
             "wilson_95ci": wilson_ci(agree_e2e, n_e2e)},
         "ref_truth_accuracy": agg(clf_metrics, "ref_truth_accuracy"),
-        "tpu_truth_accuracy": agg(clf_metrics, "tpu_truth_accuracy"),
+        "sys_truth_accuracy": agg(clf_metrics, "sys_truth_accuracy"),
     }
 
 
-def robustness_near_clamp_ms(layout, base_codes, shifts, cell_axes, tpu_clf,
+def robustness_near_clamp_ms(layout, base_codes, shifts, cell_axes, sys_clf,
                              spacing):
     """The OLD r03 multispecies scene 4 (near-clamp ±8-12 px shifts), kept as
     robustness-only evidence: the reference/oracle collapses on it (see
-    NEAR_CLAMP note), so it cannot anchor parity — this records that the TPU
+    NEAR_CLAMP note), so it cannot anchor parity — this records that the system
     pipeline still recovers the planted cells there, plus the oracle's
     collapsed cell count as the comparison point."""
     import jax.numpy as jnp
@@ -255,12 +255,12 @@ def robustness_near_clamp_ms(layout, base_codes, shifts, cell_axes, tpu_clf,
     fov = fov_scene(layout, codes, 4, shifts, cell_axes, spacing, NEAR_CLAMP)
     res = segment2d.segment_lpcv(fov["stack"], None, SegmentationConfig(),
                                  MAX_CELLS)
-    seg_tpu = np.asarray(res.segmentation)
-    n_tpu = int(res.n_cells)
-    _, norm_tpu = measure.measure_fov(res.segmentation, res.registered,
-                                      n_tpu, MAX_CELLS)
-    truth = harness.truth_code_per_label(seg_tpu, fov["truth_labels"], codes)
-    calls, _, _, _ = tpu_clf.classify(jnp.asarray(np.asarray(norm_tpu)))
+    seg_sys = np.asarray(res.segmentation)
+    n_sys = int(res.n_cells)
+    _, norm_sys = measure.measure_fov(res.segmentation, res.registered,
+                                      n_sys, MAX_CELLS)
+    truth = harness.truth_code_per_label(seg_sys, fov["truth_labels"], codes)
+    calls, _, _, _ = sys_clf.classify(jnp.asarray(np.asarray(norm_sys)))
     calls = np.asarray([str(c).split("_")[0] for c in calls])
     nbits = len(calls[0]) if len(calls) else 7
     fmt = "0{}b".format(nbits)
@@ -274,8 +274,8 @@ def robustness_near_clamp_ms(layout, base_codes, shifts, cell_axes, tpu_clf,
         "scene": "near_clamp_misregistered (r03 scene 4)",
         "laser_shifts": NEAR_CLAMP[:4],
         "planted_cells": GRID * GRID,
-        "tpu_cells": n_tpu,
-        "tpu_truth_accuracy": acc,
+        "sys_cells": n_sys,
+        "sys_truth_accuracy": acc,
         "oracle_cells": int(len(np.unique(seg_ref)) - 1),
         "note": ("reference-equivalent oracle collapses on this scene "
                  "(strip-driven KMeans flip; see NEAR_CLAMP comment), so it "
@@ -294,7 +294,7 @@ def main():
     synthetic.write_reference_folder(TEN_BIT, tmp7, encs10,
                                      cells_per_code=40, seed=7)
     ref7 = rc.train_ref_7b(tmp7, spc=60, seed=1)
-    tpu7 = mtrain.train_excitation_adjusted_biofilm_7b(
+    sys7 = mtrain.train_excitation_adjusted_biofilm_7b(
         tmp7, spc=60, seed=1, save=False)
 
     tmp10 = tempfile.mkdtemp()
@@ -303,12 +303,12 @@ def main():
     synthetic.write_reference_folder(TEN_BIT, tmp10, encs_ref10,
                                      cells_per_code=40, seed=7)
     ref10 = rc.train_ref_10b(tmp10, spc=60, seed=1)
-    tpu10 = mtrain.train_excitation_adjusted_violet_derivative(
+    sys10 = mtrain.train_excitation_adjusted_violet_derivative(
         tmp10, spc=60, seed=1, save=False)
 
     result = {
         "description": (
-            "Reference-parity evidence at production scale: TPU pipelines "
+            "Reference-parity evidence at production scale: system pipelines "
             "vs a line-for-line oracle transcription of the reference "
             "(tests/ref_oracle; same sklearn KMeans/SVC calls, skimage-"
             "semantics morphology/watershed, pyx-derived stencil; UMAP+SVC "
@@ -328,28 +328,28 @@ def main():
         "multispecies_7b": run_family(
             "multispecies", SEVEN_BIT, CODES_7B,
             [(0, 0), (1, 2), (-1, 0), (2, -2)], (7.0, 12.0),
-            ref7, tpu7, spacing=27.0, misreg=MISREG_MODERATE,
+            ref7, sys7, spacing=27.0, misreg=MISREG_MODERATE,
             misreg_pedestal=0.04),
         "ecoli_10b": run_family(
             "ecoli", TEN_BIT, CODES_10B,
             [(0, 0), (2, -1), (0, 3), (-2, 0), (1, 1)], (9.0, 14.0),
-            ref10, tpu10, spacing=31.0, misreg=NEAR_CLAMP),
+            ref10, sys10, spacing=31.0, misreg=NEAR_CLAMP),
         "robustness_near_clamp_ms": robustness_near_clamp_ms(
             SEVEN_BIT, CODES_7B, [(0, 0), (1, 2), (-1, 0), (2, -2)],
-            (7.0, 12.0), tpu7, spacing=27.0),
+            (7.0, 12.0), sys7, spacing=27.0),
         "runtime_s": None,
     }
     budget = 0.995
     result["budget"] = budget
 
     def _truth_gap_ok(fam):
-        # The agreement columns score the TPU stack on the oracle's own
-        # artifacts (TpuOracleTwin), so they can't see a regression in the
+        # The agreement columns score the system stack on the oracle's own
+        # artifacts (SysOracleTwin), so they can't see a regression in the
         # PRODUCTION classifier's training path. Gate that separately: the
         # production classifier's accuracy vs planted truth may trail the
         # oracle's by at most the same 0.5% budget.
         gap = (fam["ref_truth_accuracy"]["mean"]
-               - fam["tpu_truth_accuracy"]["mean"])
+               - fam["sys_truth_accuracy"]["mean"])
         return gap <= (1.0 - budget)
 
     result["pass"] = bool(

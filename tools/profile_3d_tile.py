@@ -11,10 +11,6 @@ import argparse
 import os
 import sys
 
-os.environ.setdefault("HIPRFISH_CACHE_DIR",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
-
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np

@@ -16,10 +16,6 @@ import os
 import sys
 import time
 
-os.environ.setdefault("HIPRFISH_CACHE_DIR",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
-
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -61,7 +57,7 @@ def main():
     from hiprfish_tpu.ops import regionprops as rp
     from hiprfish_tpu.ops import register as reg
     from hiprfish_tpu.ops import watershed as ws
-    from hiprfish_tpu.ops.lp_pallas import lp_cv_enhance_2d_auto
+    from hiprfish_tpu.ops.line_profile import lp_cv_enhance_2d
     from hiprfish_tpu.pipeline import fused
     from hiprfish_tpu.utils import synthetic
 
@@ -90,7 +86,7 @@ def main():
             # segment_lpcv_device is a plain function (jitted only via its
             # fov_step caller) — jit here or it dispatches op-by-op.
             fn = jax.jit(lambda st, _nm=nm: fused.segment_lpcv_device(
-                st, None, cfg, max_cells, True, True, _nm)[0])
+                st, None, cfg, max_cells, True, _nm)[0])
             t, _ = device_time_ms(fn, stack, n=3, reps=3, warmup=1)
             label = nm or "FULL segment_lpcv_device"
             print(f"{label:<28} cum {t:8.1f} ms   delta {t - prev:8.1f} ms",
@@ -104,8 +100,8 @@ def main():
     @jax.jit
     def stage_register(stack):
         # mirrors fused.segment_lpcv_device:54-72 — phase correlation on
-        # the centered register_crop window (full-frame FFTs here once
-        # overstated this stage 32.8 vs ~13 ms), clamped like the engine
+        # the centered register_crop window (full-frame FFTs here would
+        # overstate this stage), clamped like the engine
         projections = [jnp.sum(img, axis=2) for img in stack]
         ref0 = projections[0]
         c = cfg.register_crop
@@ -136,7 +132,7 @@ def main():
     stages["nlm"], den = timeit(nlm, sum_norm, reps=args.reps)
 
     # --- LP-CV enhancement ----------------------------------------------
-    lpf = jax.jit(lambda x: lp_cv_enhance_2d_auto(
+    lpf = jax.jit(lambda x: lp_cv_enhance_2d(
         x, cfg.patch_size, cfg.phi_range))
     stages["lp_enhance"], enhanced = timeit(lpf, den, reps=args.reps)
 
@@ -257,7 +253,7 @@ def main():
 
     # --- fused end-to-end ----------------------------------------------------
     stepf = lambda: fused.fov_step(stack, clf_arrays, cfg, max_cells,
-                                   clf_static, True)
+                                   clf_static)
     stages["TOTAL fused fov_step"], out = timeit(stepf, reps=args.reps)
 
     print(f"# cells found: {int(out.n_cells)}", file=sys.stderr)
